@@ -7,8 +7,8 @@ Builds bench.py's res-50 / batch-4 configuration through the port's
 traces three steps with ``torch.profiler`` and prints, after the card's
 name and power limit, one JSON line:
 the wall time per step, the device busy share (sum of kernel time over
-wall time), the share of the three hand-written kernels, and the device
-time by kernel name, largest first.  The full table goes to
+wall time), the device time and share of each hand-written kernel (K1,
+K2, K3), and the device time by kernel name, largest first.  The full table goes to
 ``chiprun_out/profile_table.txt`` when that directory exists.
 """
 
@@ -25,7 +25,9 @@ from torch.profiler import ProfilerActivity, profile
 from chip_smoke import bench_batch, bench_config, header
 
 STEPS = 3
-OURS = ("stencil_kernel", "nearest_kernel", "tri_argmin_kernel")
+# hand-written kernel -> the name its CUDA kernels carry
+OURS = {"K1 stencil": "stencil_kernel", "K2 nearest": "nearest_kernel",
+        "K3 tri_argmin": "tri_argmin_kernel"}
 
 
 def main() -> int:
@@ -56,7 +58,14 @@ def main() -> int:
     device_ms = sum(t for _, t, _ in by_name)
     if device_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    ours_ms = sum(t for k, t, _ in by_name if any(o in k for o in OURS))
+    ours = {
+        label: {"ms_per_step": ms, "share_of_device": ms / device_ms,
+                "launches_per_step": sum(c for k, _, c in by_name
+                                         if pat in k)}
+        for label, pat in OURS.items()
+        for ms in [sum(t for k, t, _ in by_name if pat in k)]
+    }
+    ours_ms = sum(v["ms_per_step"] for v in ours.values())
     step_ms = wall * 1e3 / STEPS
     out = Path("chiprun_out")
     if out.is_dir():
@@ -67,6 +76,7 @@ def main() -> int:
         "step_ms": step_ms, "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / step_ms,
         "hand_written_kernels_ms_per_step": ours_ms,
+        "hand_written_kernels": ours,
         "kernels_per_step": sum(c for _, _, c in by_name),
         "top": [{"name": k[:90], "ms_per_step": t, "launches_per_step": c}
                 for k, t, c in by_name[:25]],

@@ -14,7 +14,8 @@ Phases, each reporting on lines of its own:
    timed steps, launch counts per kernel read around them;
 5. kernels — each kernel on the inputs the main path gave it, held
    against its plain version on the card and timed beside its bound and
-   the nearest single PyTorch call;
+   the nearest single PyTorch call (every K1 variant of the step, with
+   their launch-weighted total per step), then the kernels' edge cases;
 6. the ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -196,7 +197,8 @@ def parity(devices=("cpu", "cuda")):
 
 class Recorder:
     """Wraps each kernel's launch function to keep a copy of the inputs
-    of its first launch per variant during the main path."""
+    of its first launch per variant during the main path, and to count
+    each variant's launches."""
 
     def __init__(self):
         from deftet_tpu_torch.ops import nearest, stencil, tri_distance
@@ -206,17 +208,19 @@ class Recorder:
                      "tri_argmin": (tri_distance, "_tri_argmin_cuda")}
         self.orig = {k: getattr(m, a) for k, (m, a) in self.mods.items()}
         self.inputs = {}
+        self.counts = {}
 
     def _wrap(self, name):
         orig = self.orig[name]
 
         def launch(*args):
             if name == "stencil":
-                x, n, offsets, scale = args
+                x, n, offsets, scale, in_scale = args
                 key = (name, str(x.dtype).split(".")[-1], x.shape[-1],
-                       "forward" if scale is not None else "backward")
+                       "backward" if in_scale is not None else "forward")
             else:
                 key = (name,)
+            self.counts[key] = self.counts.get(key, 0) + 1
             if key not in self.inputs:
                 self.inputs[key] = tuple(
                     a.detach().clone() if isinstance(a, torch.Tensor) else a
@@ -288,15 +292,60 @@ def main_path(config, device="cuda", occ_res=64):
         launches_total=launches, launches_per_step=LAUNCHES_PER_STEP)
     del engine, batch
     torch.cuda.empty_cache()
-    return rec.inputs, launches
+    per_variant = {k: c / (1 + TIMED_STEPS) for k, c in rec.counts.items()}
+    return rec.inputs, launches, per_variant
 
 
 # ------------------------------------------------------------ kernel checks
-def check_stencil(inputs):
+def stencil_bound(x, n, offsets, scale, in_scale):
+    """(bound ms, bound by) of one K1 call: x read and out written once,
+    each scale read once; one add per in-lattice neighbour read and one
+    multiply per element for each scale."""
+    b, v, c = x.shape
+    ijk = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"), -1)
+    reads = sum(int(np.all((ijk + o >= 0) & (ijk + o < n), -1).sum())
+                for o in np.asarray(offsets))
+    n_scales = (scale is not None) + (in_scale is not None)
+    n_flops = b * c * (reads + n_scales * v)
+    n_bytes = 2 * x.numel() * x.element_size() + n_scales * v * 4
+    return bound_ms(n_bytes, n_flops)
+
+
+def check_stencil_launches(x, n, offsets, inv_deg):
+    """The device work of StencilMean's forward and backward on the GCN's
+    inputs, read by torch.profiler: each is one launch of the tiled K1
+    kernel and no elementwise pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deftet_tpu_torch.ops import stencil
+
+    def kernels_of(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        return out, {e.key: e.count for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    xg = x.detach().requires_grad_()
+    y, fwd = kernels_of(
+        lambda: stencil.lattice_neighbor_mean(xg, inv_deg, n, offsets))
+    g = torch.ones_like(y)
+    _, bwd = kernels_of(lambda: torch.autograd.grad(y, xg, g))
+    for way, kernels in (("forward", fwd), ("backward", bwd)):
+        if sum(kernels.values()) != 1 or not all(
+                "stencil_kernel_tiled" in k for k in kernels):
+            raise AssertionError(
+                f"stencil {way} ran {kernels}, not one tiled K1 launch")
+    return {"forward": fwd, "backward": bwd}
+
+
+def check_stencil(inputs, per_step):
     """Every K1 variant of the main path, plus the bf16 GCN inputs in f32
-    (the precision="f32" path), against the plain version.  Same sum
-    order in both, so they agree exactly; the tolerance (1e-6 relative,
-    plus one bf16 rounding for bf16 outputs) only covers a reordered sum."""
+    (the precision="f32" path), against the plain version: equal bit for
+    bit (same f32 sums in the same order, same roundings).  Each
+    main-path variant is timed beside its bound; their times weighted by
+    launches per step give K1's device time per step."""
     import torch.nn.functional as F
 
     from deftet_tpu_torch.ops import stencil
@@ -305,24 +354,31 @@ def check_stencil(inputs):
     for way in ("forward", "backward"):
         x, *rest = cases[("stencil", "bfloat16", 256, way)]
         cases[("stencil", "float32", 256, way)] = (x.float(), *rest)
-    fwd = cases[("stencil", "bfloat16", 256, "forward")]
     report = {}
-    for key, (x, n, offsets, scale) in sorted(cases.items(), key=str):
-        got = stencil.stencil_sum(x, n, offsets, scale)
-        ref = stencil.stencil_sum_plain(x, n, offsets, scale)
+    step_ms = 0.0
+    for key, (x, n, offsets, scale, in_scale) in sorted(cases.items(),
+                                                        key=str):
+        got = stencil.stencil_sum(x, n, offsets, scale, in_scale)
+        ref = stencil.stencil_sum_plain(x, n, offsets, scale, in_scale)
         err = float((got.float() - ref.float()).abs().max())
-        tol = 1e-6 * float(ref.float().abs().max()) + (
-            2.0**-8 * float(ref.float().abs().max())
-            if x.dtype == torch.bfloat16 else 0.0)
-        report["/".join(map(str, key[1:]))] = {"shape": list(x.shape),
-                                               "max_abs_err": err}
-        if not err <= tol:
-            raise AssertionError(f"stencil {key}: max err {err} > {tol}")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"stencil {key}: max err {err}, not equal")
+        row = {"shape": list(x.shape), "max_abs_err": err}
+        if key in per_step:
+            ms = cuda_ms(lambda: stencil.stencil_sum(x, n, offsets, scale,
+                                                     in_scale), 20)
+            bms, by = stencil_bound(x, n, offsets, scale, in_scale)
+            row.update(ms=ms, bound_ms=bms, bound_by=by,
+                       launches_per_step=per_step[key])
+            step_ms += ms * per_step[key]
+        report["/".join(map(str, key[1:]))] = row
 
-    # timing on the dominant main-path call: the GCN forward at C = 256
-    x, n, offsets, scale = fwd
+    # the kernels line reports the dominant call: the GCN forward, C = 256
+    x, n, offsets, scale, _ = cases[("stencil", "bfloat16", 256, "forward")]
+    inv_deg = cases[("stencil", "bfloat16", 256, "backward")][4]
+    profiled = check_stencil_launches(x, n, offsets, inv_deg)
     b, v, c = x.shape
-    ms = cuda_ms(lambda: stencil.stencil_sum(x, n, offsets, scale), 20)
+    fwd = report["bfloat16/256/forward"]
     plain_ms = cuda_ms(
         lambda: stencil.stencil_sum_plain(x, n, offsets, scale), 3)
     # the library yardstick: depthwise conv3d with the binary stencil
@@ -341,17 +397,12 @@ def check_stencil(inputs):
                      .float() - stencil.stencil_sum_plain(
                          x, n, offsets, scale).float()).abs().max())
     library_ms = cuda_ms(library, 10)
-    # in-lattice neighbour reads: the adds this input needs
-    ijk = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"), -1)
-    reads = sum(int(np.all((ijk + o >= 0) & (ijk + o < n), -1).sum())
-                for o in np.asarray(offsets))
-    n_flops = b * c * (reads + v)  # one add per read, one scale multiply
-    n_bytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
-    bms, by = bound_ms(n_bytes, n_flops)
     worst = max(r["max_abs_err"] for r in report.values())
-    say("kernel_stencil", variants=report, library_max_abs_err=lib_err)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=library_ms, max_abs_err=worst,
+    say("kernel_stencil", variants=report, step_ms=step_ms,
+        profiled_kernels=profiled, library_max_abs_err=lib_err)
+    return dict(ms=fwd["ms"], plain_ms=plain_ms, bound_ms=fwd["bound_ms"],
+                bound_by=fwd["bound_by"], library_ms=library_ms,
+                max_abs_err=worst, step_ms=step_ms,
                 shape=f"x {list(x.shape)} {str(x.dtype).split('.')[-1]}")
 
 
@@ -396,10 +447,56 @@ def check_nearest(inputs):
                 shape=f"queries {list(q.shape)} refs {list(r.shape)} f32")
 
 
+# Flops of one point-triangle pair by its closest-point region, for the
+# least work that gives the same answer: the region tests in the kernel's
+# priority order (vertex a, b, c, edge ab, ac, bc, interior), each after
+# only the products it needs, then that region's closest point q and
+# |p - q|^2.  d1, d2 take 13 (p - a, two dot products), each further pair
+# of dot products 13, vc and vb 3 each, va with d4 - d3 and d5 - d6 5; a
+# vertex reuses p - v (5), an edge or the interior takes 8 for |p - q|^2;
+# an edge's parameter 2 and point 6, the interior's 4 and 12.  b - a, c - a
+# and c - b are per face (9 flops).
+TRI_REGION_FLOPS = {"a": 13 + 5, "b": 26 + 5, "c": 39 + 5,
+                    "ab": 39 + 3 + 8 + 8, "ac": 39 + 6 + 8 + 8,
+                    "bc": 39 + 11 + 8 + 8, "interior": 39 + 11 + 16 + 8}
+TRI_FACE_FLOPS = 9
+
+
+def tri_region_counts(pts, tri, mask, n_active, chunk=512):
+    """Scanned pairs (unmasked faces below n_active) by closest-point
+    region, in the order of TRI_REGION_FLOPS, and the scanned faces."""
+    counts = torch.zeros(len(TRI_REGION_FLOPS), dtype=torch.int64,
+                         device=pts.device)
+    faces = 0
+    for bi in range(pts.shape[0]):
+        na = int(n_active[bi])
+        t = tri[bi, :na][mask[bi, :na] > 0]
+        faces += t.shape[0]
+        a, b, c = t[:, 0], t[:, 1], t[:, 2]
+        ab, ac = b - a, c - a
+        for s in range(0, pts.shape[1], chunk):
+            p = pts[bi, s:s + chunk, None, :]
+            ap, bp, cp = p - a, p - b, p - c
+            d1, d2 = (ab * ap).sum(-1), (ac * ap).sum(-1)
+            d3, d4 = (ab * bp).sum(-1), (ac * bp).sum(-1)
+            d5, d6 = (ab * cp).sum(-1), (ac * cp).sum(-1)
+            va, vb, vc = d3 * d6 - d5 * d4, d5 * d2 - d1 * d6, d1 * d4 - d3 * d2
+            region = torch.full_like(d1, 6, dtype=torch.int64)
+            for r, sel in ((5, (va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0)),
+                           (4, (vb <= 0) & (d2 >= 0) & (d6 <= 0)),
+                           (3, (vc <= 0) & (d1 >= 0) & (d3 <= 0)),
+                           (2, (d6 >= 0) & (d5 <= d6)),
+                           (1, (d3 >= 0) & (d4 <= d3)),
+                           (0, (d1 <= 0) & (d2 <= 0))):  # the last wins
+                region = torch.where(sel, r, region)
+            counts += torch.bincount(region.flatten(), minlength=7)
+    return counts.tolist(), faces
+
+
 def check_tri_argmin(inputs):
-    """K3 against the plain version: the point-triangle distance at the
-    returned faces agrees to 1e-6 relative (same region order and
-    arithmetic, no FMA); indices may differ only at near-ties."""
+    """K3 against the plain version: the same index for every point (same
+    region order and arithmetic, no FMA contraction, ties to the lowest
+    index), hence the same distance at it."""
     from deftet_tpu_torch.ops import tri_distance
 
     pts, tri, mask, n_active = inputs[("tri_argmin",)]
@@ -414,33 +511,41 @@ def check_tri_argmin(inputs):
     i_ref = tri_distance.tri_argmin_plain(pts, tri, mask, n_active)
     d, d_ref = d2_at(i), d2_at(i_ref)
     err = float((d - d_ref).abs().max())
-    if not err <= 1e-6 * float(d_ref.abs().max()) + 1e-12:
-        raise AssertionError(f"tri_argmin distance max err {err}")
     n_diff = int((i != i_ref).sum())
+    if n_diff or err:
+        raise AssertionError(
+            f"tri_argmin: {n_diff} indices differ, distance err {err}")
 
     ms = cuda_ms(lambda: tri_distance.tri_argmin(pts, tri, mask), 20)
     plain_ms = cuda_ms(
         lambda: tri_distance.tri_argmin_plain(pts, tri, mask, n_active), 3)
     b, p, _ = pts.shape
-    f_idx = torch.arange(tri.shape[1], device=tri.device)[None]
-    scanned = (mask > 0) & (f_idx < n_active[:, None])
-    pairs = int(scanned.sum()) * p
-    # region-test closest point, interior path: 78 flops per pair
-    n_flops = 78 * pairs
+    counts, faces = tri_region_counts(pts, tri, mask, n_active)
+    pairs = sum(counts)
+    n_flops = TRI_FACE_FLOPS * faces + sum(
+        n * f for n, f in zip(counts, TRI_REGION_FLOPS.values()))
     n_bytes = pts.numel() * 4 + tri.numel() * 4 + mask.numel() * 4 + 4 * b * p
     bms, by = bound_ms(n_bytes, n_flops)
     say("kernel_tri_argmin", shape=[list(pts.shape), list(tri.shape)],
         n_active=n_active.tolist(), pairs=pairs, max_abs_err=err,
-        index_differences_at_ties=n_diff)
+        index_differences=n_diff,
+        region_pairs=dict(zip(TRI_REGION_FLOPS, counts)),
+        flops_per_pair=n_flops / pairs,
+        # built with -fmad=false: no instruction does two flops, so the
+        # float32 ceiling is half the peak the bound assumes
+        no_fma_ceiling_ms=2 * bms)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=None, max_abs_err=err,
                 shape=f"points {list(pts.shape)} faces {list(tri.shape)} f32")
 
 
 def check_edge_cases(device="cuda"):
-    """The kernels' masking and skip paths, which the main path's inputs
-    (every query tile live, every face unmasked) do not reach: against
-    the plain versions, small shapes, same tolerances as above."""
+    """The kernels' paths that the main path's inputs do not reach,
+    against the plain versions at small shapes: K1 on ragged row tiles,
+    lattices smaller than a tile and every kind of scale, and its refusal
+    of a lattice too large for the tiled path; K2's masking and skip; K3's
+    masks, ties across face splits and ragged point tiles.  K1 and K3 must
+    agree exactly, K2 as in check_nearest."""
     from deftet_tpu_torch.ops import nearest, stencil, tri_distance
     from deftet_tpu_torch.tetgrid import build_tet_grid
     from deftet_tpu_torch.train.statics import lattice_offsets
@@ -452,16 +557,38 @@ def check_edge_cases(device="cuda"):
 
     report = {}
     offsets = lattice_offsets(build_tet_grid(5))
-    scale = torch.rand(6**3, generator=gen).to(device)
-    for dtype in (torch.float32, torch.bfloat16):
-        for c in (3, 40, 130):
-            x = uniform(2, 6**3, c).to(dtype)
-            for s in (scale, None):
-                got = stencil.stencil_sum(x, 6, offsets, s)
-                ref = stencil.stencil_sum_plain(x, 6, offsets, s)
-                if not torch.equal(got, ref):
-                    raise AssertionError(f"stencil edge case {dtype} C={c}")
-    report["stencil"] = "C in (3, 40, 130), f32 and bf16, scaled and not"
+    cases = 0
+    for n in (2, 3, 17, 51):
+        scale = torch.rand(n**3, generator=gen).to(device)
+        in_scale = (torch.rand(n**3, generator=gen) + 0.1).to(device)
+        for dtype in (torch.float32, torch.bfloat16):
+            for c in (3, 40, 130, 256):
+                x = uniform(2, n**3, c).to(dtype)
+                for s, s_in in ((scale, None), (None, None),
+                                (None, in_scale), (scale, in_scale)):
+                    got = stencil.stencil_sum(x, n, offsets, s, s_in)
+                    ref = stencil.stencil_sum_plain(x, n, offsets, s, s_in)
+                    if not torch.equal(got, ref):
+                        raise AssertionError(
+                            f"stencil edge case n={n} {dtype} C={c} "
+                            f"scale={s is not None} "
+                            f"in_scale={s_in is not None}")
+                    cases += 1
+    report["stencil"] = (f"{cases} cases: n in (2, 3, 17, 51), C in (3, 40, "
+                         "130, 256), f32 and bf16, scale / none / in_scale "
+                         "/ both")
+    # 16-byte packs on a lattice whose ring does not fit in shared memory:
+    # refused, not run another way
+    x = torch.zeros(1, 200**3, 8, dtype=torch.bfloat16, device=device)
+    try:
+        stencil.stencil_sum(x, 200, offsets)
+    except RuntimeError as e:
+        if "not supported" not in str(e):
+            raise
+        report["stencil_refused"] = f"n=200 C=8 bf16: {e}"
+    else:
+        raise AssertionError("stencil ran n=200 with 16-byte packs")
+    del x
 
     # n_valid masking (incl. no valid reference), the 512-query-tile skip
     # and more references than the TPU kernel's 16,384 VMEM cap
@@ -479,27 +606,36 @@ def check_edge_cases(device="cuda"):
         raise AssertionError("nearest skip / no-valid outputs wrong")
     report["nearest"] = "n_valid (0, 17000, 20000), n_queries tile skip"
 
-    # masked faces, a face prefix past n_active, an all-masked batch
-    pts, tri = uniform(3, 3000, 3), uniform(3, 2500, 3, 3)
-    mask = (torch.rand(3, 2500, generator=gen) < 0.7).float().to(device)
-    mask[1, 2000:] = 0
+    # Batch 0: every face a copy of face 5, behind five masked copies, so
+    # that every face split the kernel cuts ties at the same distance and
+    # the merge must keep the lowest unmasked index, wherever the splits
+    # fall.  Batch 1: masked faces and a ragged n_active; batch 2: every
+    # face masked.  P ragged against the point tile and P below one tile.
+    n_faces = 3000
+    tri = uniform(3, n_faces, 3, 3)
+    tri[0] = tri[0, 5]
+    mask = (torch.rand(3, n_faces, generator=gen) < 0.7).float().to(device)
+    mask[0] = 1
+    mask[0, :5] = 0
+    mask[1, 2777:] = 0
     mask[2] = 0
-    i = tri_distance.tri_argmin(pts, tri, mask)
-    i_ref = tri_distance.tri_argmin_plain(
-        pts, tri, mask, tri_distance.active_face_count(mask))
-
-    def d2_at(idx):
-        sel = torch.gather(tri, 1, idx.long()[:, :, None, None].expand(
-            -1, -1, 3, 3))
-        return tri_distance.point_triangle_squared_distance(
-            pts, sel[..., 0, :], sel[..., 1, :], sel[..., 2, :])
-
-    if not torch.allclose(d2_at(i), d2_at(i_ref), rtol=1e-6, atol=1e-12):
-        raise AssertionError("tri_argmin edge cases disagree")
-    if not (bool(torch.all(i[2] == 0)) and int(i[1].max()) < 2000
-            and bool(torch.all(mask.gather(1, i[:2].long()) > 0))):
-        raise AssertionError("tri_argmin picked a masked face")
-    report["tri_argmin"] = "masked faces, n_active 2000, all masked"
+    for p in (700, 100):
+        pts = uniform(3, p, 3)
+        i = tri_distance.tri_argmin(pts, tri, mask)
+        i_ref = tri_distance.tri_argmin_plain(
+            pts, tri, mask, tri_distance.active_face_count(mask))
+        if not torch.equal(i, i_ref):
+            raise AssertionError(
+                f"tri_argmin edge cases (P={p}): "
+                f"{int((i != i_ref).sum())} indices differ")
+        if not (bool(torch.all(i[0] == 5)) and bool(torch.all(i[2] == 0))
+                and int(i[1].max()) < 2777
+                and bool(torch.all(mask.gather(1, i[:2].long()) > 0))):
+            raise AssertionError("tri_argmin broke a tie or picked a masked "
+                                 "face")
+        report[f"tri_argmin_P{p}"] = (
+            "3000 equal faces behind 5 masked (index 5 everywhere), masked "
+            "faces, n_active 2777, all masked")
     say("kernel_edge_cases", **report)
 
 
@@ -516,9 +652,9 @@ def main() -> int:
     smi = header()
     build()
     parity()
-    inputs, launches = main_path(bench_config())
+    inputs, launches, per_variant = main_path(bench_config())
     results = {
-        "stencil": check_stencil(inputs),
+        "stencil": check_stencil(inputs, per_variant),
         "nearest": check_nearest(inputs),
         "tri_argmin": check_tri_argmin(inputs),
     }
@@ -534,6 +670,8 @@ def main() -> int:
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
             "shape": res["shape"],
         })
+        if "step_ms" in res:
+            kernels[-1]["step_ms"] = res["step_ms"]
     say("done", seconds=time.perf_counter() - t0, card=smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,11 +41,13 @@ KERNELS = {
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "stencil": ("deftet_stencil",
-                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "nearest": ("deftet_nearest", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "tri_argmin": ("deftet_tri_argmin", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "tri_argmin": ("deftet_tri_argmin",
+                   [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

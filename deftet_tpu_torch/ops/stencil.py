@@ -3,18 +3,20 @@
 Replaces deftet_tpu/ops/stencil_pallas.py:_stencil3d_kernel, reached there
 via ``stencil_sum`` and the custom-VJP ``lattice_neighbor_mean``.
 
-    out[b, v, c] = scale[v] * sum_{off} x[b, v + off, c]
+    out[b, v, c] = scale[v] * sum_{off} r(x[b, v + off, c] * in_scale[v + off])
 
 over the n^3 vertex lattice (vertex v = i n^2 + j n + k); reads outside the
-lattice are zero, accumulation is f32 and storage keeps x's dtype.  The
-offset set is symmetric, so the un-normalized stencil is self-transpose
-and the VJP of ``inv_deg * S(x)`` is ``S(inv_deg * g)``: the same kernel
-with unit scale on the pre-scaled cotangent.
+lattice are zero, r() rounds to x's dtype, accumulation is f32 and storage
+keeps x's dtype.  The offset set is symmetric, so the un-normalized
+stencil is self-transpose and the VJP of ``inv_deg * S(x)`` is
+``S(r(inv_deg * g))``: the same kernel with ``in_scale = inv_deg`` on the
+cotangent, one launch and no elementwise pass.
 
 On a CUDA tensor ``stencil_sum`` launches ``csrc/stencil.cu``; it is
 bounded by memory bytes on the H100 (one read of x, one write of out) and
-keeps the 14 neighbour re-reads in L2 by walking channels innermost (see
-the source).  On a CPU tensor it runs ``stencil_sum_plain``.
+stages each plane of x once in shared memory, so the 14 neighbour reads
+come from there (see the source).  On a CPU tensor it runs
+``stencil_sum_plain``.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from . import _cuda
 _KERNEL = "stencil"
 
 
-def _check(x: torch.Tensor, n: int, offsets, scale) -> None:
+def _check(x: torch.Tensor, n: int, offsets, scale, in_scale) -> None:
     if x.dim() != 3 or x.shape[1] != n**3:
         raise ValueError(f"x must be (B, {n}^3, C), got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -37,18 +39,24 @@ def _check(x: torch.Tensor, n: int, offsets, scale) -> None:
     if not all(len(o) == 3 and all(-1 <= d <= 1 for d in o)
                for o in offsets):
         raise ValueError(f"offsets must lie in {{-1,0,1}}^3: {offsets}")
-    if scale is not None:
-        if scale.shape != (n**3,) or scale.dtype != torch.float32:
-            raise ValueError("scale must be float32 of shape (n^3,)")
-        if scale.device != x.device:
-            raise ValueError("scale and x must be on one device")
+    for name, t in (("scale", scale), ("in_scale", in_scale)):
+        if t is None:
+            continue
+        if t.shape != (n**3,) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 of shape (n^3,)")
+        if t.device != x.device:
+            raise ValueError(f"{name} and x must be on one device")
 
 
 def stencil_sum_plain(x: torch.Tensor, n: int, offsets,
-                      scale: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version: zero-pad the lattice and sum the 14 shifted
-    slices in offset order (f32), then scale and cast to x's dtype."""
+                      scale: torch.Tensor | None = None,
+                      in_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version: scale x by in_scale (rounded to x's dtype),
+    zero-pad the lattice and sum the 14 shifted slices in offset order
+    (f32), then scale and cast to x's dtype."""
     b, v, c = x.shape
+    if in_scale is not None:
+        x = (x.float() * in_scale[None, :, None]).to(x.dtype)
     xp = F.pad(x.reshape(b, n, n, n, c).float(), (0, 0, 1, 1, 1, 1, 1, 1))
     acc = torch.zeros((b, n, n, n, c), dtype=torch.float32, device=x.device)
     for di, dj, dk in offsets:
@@ -75,11 +83,12 @@ def _vec_width(x: torch.Tensor, out: torch.Tensor) -> int:
     return 1
 
 
-def _stencil_cuda(x, n, offsets, scale):
+def _stencil_cuda(x, n, offsets, scale, in_scale):
     if not x.is_contiguous():
         raise ValueError("stencil kernel needs a contiguous x")
-    if scale is not None and not scale.is_contiguous():
-        raise ValueError("stencil kernel needs a contiguous scale")
+    for name, t in (("scale", scale), ("in_scale", in_scale)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"stencil kernel needs a contiguous {name}")
     b, _, c = x.shape
     out = torch.empty_like(x)
     flat = [int(d) for off in offsets for d in off]
@@ -89,6 +98,7 @@ def _stencil_cuda(x, n, offsets, scale):
         err = lib.deftet_stencil(
             x.data_ptr(), out.data_ptr(),
             None if scale is None else scale.data_ptr(),
+            None if in_scale is None else in_scale.data_ptr(),
             offs, len(offsets), b, n, c,
             int(x.dtype == torch.bfloat16), _vec_width(x, out),
             _cuda.stream_handle(x.device),
@@ -99,36 +109,37 @@ def _stencil_cuda(x, n, offsets, scale):
 
 
 def stencil_sum(x: torch.Tensor, n: int, offsets,
-                scale: torch.Tensor | None = None) -> torch.Tensor:
-    """``scale * sum_off shift_off(x)`` over the n^3 lattice; (B, n^3, C)
-    in x's dtype.  CUDA tensors go to the kernel, CPU tensors to the
-    plain version; anything else raises."""
+                scale: torch.Tensor | None = None,
+                in_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """``scale * sum_off shift_off(r(in_scale * x))`` over the n^3
+    lattice; (B, n^3, C) in x's dtype.  CUDA tensors go to the kernel, CPU
+    tensors to the plain version; anything else raises."""
     offsets = tuple(tuple(int(d) for d in o) for o in offsets)
-    _check(x, n, offsets, scale)
+    _check(x, n, offsets, scale, in_scale)
     if x.device.type == "cuda":
-        return _stencil_cuda(x, n, offsets, scale)
+        return _stencil_cuda(x, n, offsets, scale, in_scale)
     if x.device.type == "cpu":
-        return stencil_sum_plain(x, n, offsets, scale)
+        return stencil_sum_plain(x, n, offsets, scale, in_scale)
     raise RuntimeError(f"no stencil implementation for device {x.device}")
 
 
 class StencilMean(torch.autograd.Function):
     """Row-normalized neighbour mean ``inv_deg * S(x)`` with the
-    self-transpose backward ``S(inv_deg * g)`` in x's dtype."""
+    self-transpose backward ``S(r(inv_deg * g))`` in x's dtype, the
+    cotangent's pre-scale read inside the kernel."""
 
     @staticmethod
     def forward(ctx, x, inv_deg, n, offsets):
         ctx.save_for_backward(inv_deg)
         ctx.n = n
         ctx.offsets = offsets
-        ctx.x_dtype = x.dtype
         return stencil_sum(x.contiguous(), n, offsets, inv_deg)
 
     @staticmethod
     def backward(ctx, g):
         (inv_deg,) = ctx.saved_tensors
-        gs = (g.float() * inv_deg[None, :, None]).to(ctx.x_dtype)
-        return stencil_sum(gs, ctx.n, ctx.offsets), None, None, None
+        return (stencil_sum(g.contiguous(), ctx.n, ctx.offsets,
+                            in_scale=inv_deg), None, None, None)
 
 
 def lattice_neighbor_mean(x: torch.Tensor, inv_deg: torch.Tensor, n: int,

@@ -9,7 +9,9 @@ chosen, ties to the lowest index, index 0 when every face is masked, and
 no face at or past ``n_active`` (1 + the last unmasked index) scanned.
 
 On a CUDA tensor it launches ``csrc/tri_argmin.cu`` (bounded by f32
-arithmetic on the H100, see the source); on a CPU tensor it runs
+arithmetic on the H100, see the source): the faces are cut into splits,
+each scanned by its own blocks, and the splits merge by the least packed (distance, index) key,
+which keeps every rule above.  On a CPU tensor it runs
 ``tri_argmin_plain``.  ``point_to_mesh_squared_distance`` recomputes the
 distance on the chosen face with autograd, as
 deftet_tpu/ops/tri_distance.py:126-176 does.
@@ -137,11 +139,15 @@ def _tri_argmin_cuda(points, tri, face_mask, n_active):
             raise ValueError(f"tri_argmin kernel needs contiguous {name}")
     b, p, _ = points.shape
     out = torch.empty((b, p), dtype=torch.int32, device=points.device)
+    # one key per point and one counter per point tile: 2 b p words bound
+    # it for any tile size (the kernel checks that they suffice)
+    scratch = torch.empty(2 * b * p, dtype=torch.int64, device=points.device)
     lib = _cuda.library(_KERNEL)
     with torch.cuda.device(points.device):
         err = lib.deftet_tri_argmin(
             points.data_ptr(), tri.data_ptr(), face_mask.data_ptr(),
-            n_active.data_ptr(), out.data_ptr(), b, p, tri.shape[1],
+            n_active.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), b, p, tri.shape[1],
             _cuda.stream_handle(points.device),
         )
     _cuda.check(lib, err, _KERNEL)

@@ -1,11 +1,12 @@
 """K3 triangle argmin: the port's plain version against the Pallas kernel
-(interpret mode), including all-masked batches and the chunk skip past the
-last unmasked face.  The CUDA kernel is held against the plain version on
-the card by chip_smoke.py."""
+(interpret mode), including all-masked batches, the chunk skip past the
+last unmasked face and ties across the kernel's face chunks.  The CUDA
+kernel is held against the plain version on the card by chip_smoke.py."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from deftet_tpu.ops.tri_distance import (
@@ -52,7 +53,7 @@ def _compare(pts, tri, mask, **pallas_kw):
                                           two[..., 0], 0.0), 0.0)
     clear = gap > 1e-5 * np.maximum(two[..., 0], 1e-6)
     np.testing.assert_array_equal(got[clear], ref[clear])
-    return got
+    return got, ref
 
 
 def test_plain_tri_argmin_matches_pallas():
@@ -64,7 +65,7 @@ def test_plain_tri_argmin_all_masked_and_chunk_skip():
     pts, tri, mask = _inputs(10, 2, 90, 300, keep=1.0)
     mask[0, 70:] = 0.0   # only the first 70 faces are real: chunks skipped
     mask[1, :] = 0.0     # every face masked: index 0
-    got = _compare(pts, tri, mask, tile_p=64, f_chunk=64)
+    got, _ = _compare(pts, tri, mask, tile_p=64, f_chunk=64)
     assert (got[1] == 0).all()
     assert (got[0] < 70).all()
     assert tri_distance.active_face_count(torch.tensor(mask)).tolist() == [
@@ -92,3 +93,31 @@ def test_point_to_mesh_matches_reference_value_and_grad():
     np.testing.assert_allclose(tt.grad.numpy(), np.asarray(g_ref[1]),
                                rtol=1e-4, atol=1e-5)
 
+
+@pytest.mark.parametrize("split", [7, 32, 100])
+def test_split_merge_equals_whole_range_argmin(split):
+    """The Pallas kernel scans the faces in chunks of ``split`` and merges
+    them; the plain whole-range argmin must pick the same faces.  Faces
+    are duplicated across every chunk boundary with points on them (an
+    exact tie that the lowest index must win), one batch is masked with an
+    n_active that is not a multiple of the chunk, one is all masked."""
+    rng = np.random.default_rng(split)
+    b, p, f = 3, 150, 300
+    centers = rng.uniform(-1, 1, (b, f, 1, 3))
+    tri = (centers + rng.uniform(-0.05, 0.05, (b, f, 3, 3))).astype(
+        np.float32)
+    pts = rng.uniform(-1, 1, (b, p, 3)).astype(np.float32)
+    mask = np.ones((b, f), np.float32)
+    mask[1] = rng.uniform(size=f) < 0.7
+    mask[1, 257:] = 0.0
+    mask[2] = 0.0
+    bounds = list(range(split, f, split))
+    for k, e in enumerate(bounds):
+        tri[:, e] = tri[:, e - 1]
+        pts[:, k % p] = tri[:, e].mean(axis=1)
+    n_active = tri_distance.active_face_count(torch.tensor(mask))
+    assert n_active.tolist() == [f, int(np.nonzero(mask[1])[0][-1]) + 1, 0]
+    got, ref = _compare(pts, tri, mask, tile_p=128, f_chunk=split)
+    assert (got[2] == 0).all()
+    for k, e in enumerate(bounds[:p]):  # a point on a duplicated face
+        assert got[0, k] == ref[0, k] == e - 1
