@@ -8,7 +8,8 @@ traces three steps with ``torch.profiler`` and prints, after the card's
 name and power limit, one JSON line:
 the wall time per step, the device busy share (sum of kernel time over
 wall time), the device time and share of each hand-written kernel (K1,
-K2, K3), and the device time by kernel name, largest first.  The full table goes to
+K2, K3) with its CUDA launches beside its wrapper calls per step (which
+must agree), and the device time by kernel name, largest first.  The full table goes to
 ``chiprun_out/profile_table.txt`` when that directory exists.
 """
 
@@ -25,15 +26,17 @@ from torch.profiler import ProfilerActivity, profile
 from chip_smoke import bench_batch, bench_config, header
 
 STEPS = 3
-# hand-written kernel -> the name its CUDA kernels carry
-OURS = {"K1 stencil": "stencil_kernel", "K2 nearest": "nearest_kernel",
-        "K3 tri_argmin": "tri_argmin_kernel"}
+# hand-written kernel -> (launch counter, the name its CUDA kernels carry)
+OURS = {"K1 stencil": ("stencil", "stencil_kernel"),
+        "K2 nearest": ("nearest", "nearest_kernel"),
+        "K3 tri_argmin": ("tri_argmin", "tri_argmin_kernel")}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
+    from deftet_tpu_torch.ops import _cuda
     from deftet_tpu_torch.train import Engine
 
     header()
@@ -43,6 +46,7 @@ def main() -> int:
     for _ in range(2):
         engine.train_step(batch)
     torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -61,10 +65,19 @@ def main() -> int:
     ours = {
         label: {"ms_per_step": ms, "share_of_device": ms / device_ms,
                 "launches_per_step": sum(c for k, _, c in by_name
-                                         if pat in k)}
-        for label, pat in OURS.items()
+                                         if pat in k),
+                "wrapper_calls_per_step": _cuda.launch_counts[name] / STEPS}
+        for label, (name, pat) in OURS.items()
         for ms in [sum(t for k, t, _ in by_name if pat in k)]
     }
+    # each wrapper call launches one kernel of its name (a memset of merge
+    # scratch, where a call makes one, is no kernel launch)
+    for label, row in ours.items():
+        if row["launches_per_step"] != row["wrapper_calls_per_step"]:
+            raise RuntimeError(f"{label}: {row['launches_per_step']} CUDA "
+                               "launches per step against "
+                               f"{row['wrapper_calls_per_step']} wrapper "
+                               "calls: the name pattern misses a kernel")
     ours_ms = sum(v["ms_per_step"] for v in ours.values())
     step_ms = wall * 1e3 / STEPS
     out = Path("chiprun_out")

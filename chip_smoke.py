@@ -15,7 +15,8 @@ Phases, each reporting on lines of its own:
 5. kernels — each kernel on the inputs the main path gave it, held
    against its plain version on the card and timed beside its bound and
    the nearest single PyTorch call (every K1 variant of the step, with
-   their launch-weighted total per step), then the kernels' edge cases;
+   their launch-weighted total per step), K2 also at the eval metrics'
+   shape (100,000 against 100,000 points), then the kernels' edge cases;
 6. the ``{"kernels": [...]}`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -406,45 +407,100 @@ def check_stencil(inputs, per_step):
                 shape=f"x {list(x.shape)} {str(x.dtype).split('.')[-1]}")
 
 
+def nearest_bound(q, r, n_valid, n_queries):
+    """(pairs, bound ms, bound by) of one K2 call: 8 flops (3 sub, 3 mul,
+    2 add) per scanned pair, i.e. per valid reference and query in a live
+    512-query tile; both clouds read and both outputs written once."""
+    from deftet_tpu_torch.ops import nearest
+
+    b, p, _ = q.shape
+    tile = nearest.QUERY_TILE
+    live = torch.clamp((n_queries + tile - 1) // tile * tile, min=0, max=p)
+    valid = torch.clamp(n_valid, min=0, max=r.shape[1])
+    pairs = int((live.long() * valid.long()).sum())
+    n_bytes = q.numel() * 4 + r.numel() * 4 + 8 * b * p
+    return (pairs, *bound_ms(n_bytes, 8 * pairs))
+
+
+def check_nearest_exact(label, q, r, n_valid, n_queries):
+    """K2 against the plain version on the card: the same indices and the
+    same distances, bit for bit (both take the direct difference summed
+    x, y, z in order, every product and sum rounded, no FMA)."""
+    from deftet_tpu_torch.ops import nearest
+
+    d, i = nearest.nearest_neighbor(q, r, n_valid, n_queries)
+    d_ref, i_ref = nearest.nearest_neighbor_plain(q, r, n_valid, n_queries)
+    if not (torch.equal(i, i_ref) and torch.equal(d, d_ref)):
+        raise AssertionError(
+            f"nearest {label}: {int((i != i_ref).sum())} indices and "
+            f"{int((d != d_ref).sum())} distances differ from the plain "
+            "version")
+    return d, i, float((d - d_ref).abs().max()) if d.numel() else 0.0
+
+
 def check_nearest(inputs):
-    """K2 against the plain version: indices equal except at near-ties,
-    and the distance at each returned index equal to 1e-6 relative (both
-    compute the direct difference in the same order without FMA)."""
+    """K2 on the main path's inputs, exact against the plain version, timed
+    beside its bound, its no-FMA ceiling and cdist + min."""
     from deftet_tpu_torch.ops import nearest
 
     q, r, n_valid, n_queries = inputs[("nearest",)]
-    d, i = nearest.nearest_neighbor(q, r, n_valid, n_queries)
-    d_ref, i_ref = nearest.nearest_neighbor_plain(q, r, n_valid, n_queries)
-    err = float((d - d_ref).abs().max())
-    tie = (d - d_ref).abs() <= 1e-6 * d_ref.abs() + 1e-12
-    if not err <= 1e-6 * float(d_ref.abs().max()) + 1e-12:
-        raise AssertionError(f"nearest distance max err {err}")
-    if not bool(torch.all((i == i_ref) | tie)):
-        raise AssertionError("nearest indices differ away from ties")
-    n_diff = int((i != i_ref).sum())
-
+    err = check_nearest_exact("main path", q, r, n_valid, n_queries)[2]
     ms = cuda_ms(lambda: nearest.nearest_neighbor(q, r, n_valid, n_queries),
                  20)
     plain_ms = cuda_ms(
         lambda: nearest.nearest_neighbor_plain(q, r, n_valid, n_queries), 3)
-    b, p, _ = q.shape
-    tile = nearest.QUERY_TILE
-    live = torch.clamp((n_queries + tile - 1) // tile * tile, max=p)
-    pairs = int((live.long() * n_valid.long()).sum())
-    n_flops = 8 * pairs  # 3 sub, 3 mul, 2 add per pair
-    n_bytes = q.numel() * 4 + r.numel() * 4 + 8 * b * p
-    bms, by = bound_ms(n_bytes, n_flops)
+    pairs, bms, by = nearest_bound(q, r, n_valid, n_queries)
 
     def library():  # the (B, P, M) distance matrix, then its row minima
         return torch.cdist(q, r).min(dim=-1)
 
     library_ms = cuda_ms(library, 3)
+    plan = nearest.kernel_plan(q, r)
+    # built with -fmad=false: no instruction does two flops, so the
+    # float32 ceiling is half the peak the bound assumes
     say("kernel_nearest", shape=[list(q.shape), list(r.shape)],
         n_queries=n_queries.tolist(), n_valid=n_valid.tolist(),
-        pairs=pairs, max_abs_err=err, index_differences_at_ties=n_diff)
+        pairs=pairs, max_abs_err=err, index_differences=0, plan=plan,
+        no_fma_ceiling_ms=2 * bms)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=library_ms, max_abs_err=err,
+                no_fma_ceiling_ms=2 * bms, plan=plan,
                 shape=f"queries {list(q.shape)} refs {list(r.shape)} f32")
+
+
+def sphere_clouds(seed=3, n=100_000, device="cuda"):
+    """The eval metrics' K2 shape (deftet_tpu/evals/metrics.py, 100k
+    points a side): two clouds of n points on the unit sphere, batch 1."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, r = (torch.nn.functional.normalize(
+        torch.randn((1, n, 3), generator=gen), dim=-1).to(device)
+        for _ in range(2))
+    full = torch.tensor([n], dtype=torch.int32, device=device)
+    return q, r, full, full.clone()
+
+
+def check_nearest_eval():
+    """K2 at the eval metrics' shape, 100,000 against 100,000 points:
+    exact against the plain version, timed beside its bound and no-FMA
+    ceiling, with the plan (the reference axis split over blocks).  No
+    library time: cdist's (P, M) matrix would be 40 GB."""
+    from deftet_tpu_torch.ops import nearest
+
+    q, r, n_valid, n_queries = sphere_clouds()
+    err = check_nearest_exact("eval shape", q, r, n_valid, n_queries)[2]
+    ms = cuda_ms(lambda: nearest.nearest_neighbor(q, r, n_valid, n_queries),
+                 10)
+    plain_ms = cuda_ms(
+        lambda: nearest.nearest_neighbor_plain(q, r, n_valid, n_queries), 1)
+    pairs, bms, by = nearest_bound(q, r, n_valid, n_queries)
+    row = dict(shape=[list(q.shape), list(r.shape)], pairs=pairs, ms=ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               no_fma_ceiling_ms=2 * bms, plan=nearest.kernel_plan(q, r),
+               index_differences=0, max_abs_err=err,
+               library_ms=None, library="none: cdist's (P, M) matrix "
+               "would be 40 GB")
+    say("kernel_nearest_eval", **row)
+    return row
 
 
 # Flops of one point-triangle pair by its closest-point region, for the
@@ -539,13 +595,114 @@ def check_tri_argmin(inputs):
                 shape=f"points {list(pts.shape)} faces {list(tri.shape)} f32")
 
 
+def check_nearest_edge_cases(uniform, device="cuda"):
+    """K2 where the main path does not reach, exact against the plain
+    version.  Copies of one point tie at every distance, so the lowest
+    valid copy must win across every sub-tile (32 references), ring slot
+    (1,024), split and n_valid boundary, whatever the plan:
+
+    * batch 0: references 0-4 far away, every one from 5 on a copy of one
+      point (index 5 everywhere);
+    * batch 1: references far away but copies at 31, 32, 1023, 1024, 5119,
+      5120, 12000 (index 31);
+    * batch 2: copies at 1024, 1055, 1056, 6000 with n_valid 1030, not a
+      multiple of 32 (index 1024);
+    * n_valid 0 (1e30, 0), 17,001 and 20,000 (past the Pallas kernel's
+      16,384 cap);
+    * n_queries ragged against the 512-query tile and the 3,072-query
+      block (300, 1030, 3073), P below one block, and a query with a NaN
+      coordinate, which no reference can be nearest to (1e30, 0);
+    * batch 1 alone, where the plan splits the reference axis;
+    * 1,100 batches of 32 queries against 6,000 references, where the plan
+      keeps one split that streams through the ring, with copies across
+      its slots."""
+    from deftet_tpu_torch.ops import nearest
+
+    m = 20000
+    far = uniform(3, m, 3) + 10.0
+    point = uniform(1, 1, 3)[0, 0]
+    r = far.clone()
+    r[0, 5:] = point
+    for bi, copies in ((1, [31, 32, 1023, 1024, 5119, 5120, 12000]),
+                       (2, [1024, 1055, 1056, 6000])):
+        r[bi, copies] = point
+    expect = (5, 31, 1024)
+    report = {}
+    for p, nq in ((3500, (3500, 3073, 300)), (100, (100, 60, 100))):
+        q = uniform(3, p, 3)
+        q[0, 7, 1] = float("nan")
+        nv = torch.tensor([m, m, 1030], dtype=torch.int32, device=device)
+        nqt = torch.tensor(nq, dtype=torch.int32, device=device)
+        d, i, _ = check_nearest_exact(f"ties P={p}", q, r, nv, nqt)
+        for bi, want in enumerate(expect):
+            live = -(-nq[bi] // nearest.QUERY_TILE) * nearest.QUERY_TILE
+            got = i[bi, :live].clone()
+            if bi == 0:
+                got[7] = want
+            if not bool(torch.all(got == want)):
+                raise AssertionError(f"nearest ties P={p}: batch {bi} "
+                                     f"did not keep index {want}")
+        if not (bool(d[0, 7] == 1e30) and int(i[0, 7]) == 0):
+            raise AssertionError("nearest took a NaN distance")
+        report[f"ties_P{p}"] = {"n_queries": list(nq),
+                                "plan": nearest.kernel_plan(q, r)}
+
+    q = uniform(1, 3500, 3)
+    one = torch.tensor([m], dtype=torch.int32, device=device)
+    plan = nearest.kernel_plan(q, r[1:2])
+    if plan["splits"] < 2:
+        raise AssertionError(f"nearest plan did not split B=1: {plan}")
+    _, i, _ = check_nearest_exact("ties B=1", q, r[1:2].contiguous(), one,
+                               torch.tensor([3500], dtype=torch.int32,
+                                            device=device))
+    if not bool(torch.all(i == expect[1])):
+        raise AssertionError("nearest ties across splits: not index 31")
+    report["ties_B1"] = {"plan": plan}
+
+    # enough batches that the plan keeps one split of 6,000 references,
+    # which stream through the ring's 5 slots; the rescan then reads device
+    # memory.  Copies straddle sub-tiles and slots (slot 0 is refilled).
+    n_b, n_r = 1100, 6000
+    r = uniform(n_b, n_r, 3) + 10.0
+    copies = ([31, 32, 1023, 1024], [1023, 1024, 5119, 5120],
+              [5120, 5151, 5152, 5999])
+    for bi in range(n_b):
+        r[bi, copies[bi % 3]] = point
+    q = uniform(n_b, 32, 3)
+    plan = nearest.kernel_plan(q, r)
+    if plan["splits"] != 1 or plan["split_len"] <= 5 * 1024:
+        raise AssertionError(f"nearest plan does not stream: {plan}")
+    full = torch.full((n_b,), n_r, dtype=torch.int32, device=device)
+    _, i, _ = check_nearest_exact("ties streamed", q, r, full,
+                               torch.full((n_b,), 32, dtype=torch.int32,
+                                          device=device))
+    want = torch.tensor([c[0] for c in copies], dtype=torch.int32,
+                        device=device).repeat(n_b // 3 + 1)[:n_b]
+    if not bool(torch.all(i == want[:, None])):
+        raise AssertionError("nearest ties across ring slots: not the "
+                             "lowest copy")
+    report["ties_streamed"] = {"batch": n_b, "plan": plan}
+
+    q, r = uniform(3, 3500, 3), uniform(3, m, 3)
+    nv = torch.tensor([m, 17001, 0], dtype=torch.int32, device=device)
+    nq = torch.tensor([300, 1030, 3073], dtype=torch.int32, device=device)
+    d, i, _ = check_nearest_exact("masks", q, r, nv, nq)
+    if not (bool(torch.all(d[0, 512:] == 0)) and bool(torch.all(i[2] == 0))
+            and bool(torch.all(d[2, :3584] == 1e30))
+            and bool(torch.all(i[1] < 17001))):
+        raise AssertionError("nearest skip / no-valid outputs wrong")
+    report["masks"] = ("n_valid (20000, 17001, 0), n_queries (300, 1030, "
+                       f"3073), plan {nearest.kernel_plan(q, r)}")
+    return report
+
+
 def check_edge_cases(device="cuda"):
     """The kernels' paths that the main path's inputs do not reach,
     against the plain versions at small shapes: K1 on ragged row tiles,
     lattices smaller than a tile and every kind of scale, and its refusal
-    of a lattice too large for the tiled path; K2's masking and skip; K3's
-    masks, ties across face splits and ragged point tiles.  K1 and K3 must
-    agree exactly, K2 as in check_nearest."""
+    of a lattice too large for the tiled path; K2's ties, masks and skip
+    (check_nearest_edge_cases); K3's masks, ties across face splits and
+    ragged point tiles.  All must agree exactly."""
     from deftet_tpu_torch.ops import nearest, stencil, tri_distance
     from deftet_tpu_torch.tetgrid import build_tet_grid
     from deftet_tpu_torch.train.statics import lattice_offsets
@@ -590,21 +747,7 @@ def check_edge_cases(device="cuda"):
         raise AssertionError("stencil ran n=200 with 16-byte packs")
     del x
 
-    # n_valid masking (incl. no valid reference), the 512-query-tile skip
-    # and more references than the TPU kernel's 16,384 VMEM cap
-    q, r = uniform(3, 1300, 3), uniform(3, 20000, 3)
-    nv = torch.tensor([20000, 17000, 0], dtype=torch.int32, device=device)
-    nq = torch.tensor([300, 1030, 1300], dtype=torch.int32, device=device)
-    d, i = nearest.nearest_neighbor(q, r, nv, nq)
-    d_ref, i_ref = nearest.nearest_neighbor_plain(q, r, nv, nq)
-    tie = (d - d_ref).abs() <= 1e-6 * d_ref.abs()
-    if not (torch.allclose(d, d_ref, rtol=1e-6, atol=0)
-            and bool(torch.all((i == i_ref) | tie))):
-        raise AssertionError("nearest edge cases disagree")
-    if not (bool(torch.all(d[0, 512:] == 0)) and bool(torch.all(i[2] == 0))
-            and bool(torch.all(d[2] >= 1e29))):
-        raise AssertionError("nearest skip / no-valid outputs wrong")
-    report["nearest"] = "n_valid (0, 17000, 20000), n_queries tile skip"
+    report["nearest"] = check_nearest_edge_cases(uniform, device)
 
     # Batch 0: every face a copy of face 5, behind five masked copies, so
     # that every face split the kernel cuts ties at the same distance and
@@ -658,6 +801,7 @@ def main() -> int:
         "nearest": check_nearest(inputs),
         "tri_argmin": check_tri_argmin(inputs),
     }
+    nearest_eval = check_nearest_eval()
     check_edge_cases()
     kernels = []
     for name, res in results.items():
@@ -670,8 +814,14 @@ def main() -> int:
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
             "shape": res["shape"],
         })
-        if "step_ms" in res:
-            kernels[-1]["step_ms"] = res["step_ms"]
+        for extra in ("step_ms", "no_fma_ceiling_ms"):
+            if extra in res:
+                kernels[-1][extra] = res[extra]
+        if name == "nearest":
+            kernels[-1]["eval_shape"] = {
+                k: nearest_eval[k] for k in ("shape", "ms", "plain_ms",
+                                             "bound_ms", "no_fma_ceiling_ms",
+                                             "plan")}
     say("done", seconds=time.perf_counter() - t0, card=smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,12 +42,14 @@ KERNELS = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_SIGNATURES = {
-    "stencil": ("deftet_stencil",
-                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "nearest": ("deftet_nearest", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "tri_argmin": ("deftet_tri_argmin",
-                   [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
+_SIGNATURES = {  # name -> {C function: argument types}; all return an int
+    "stencil": {"deftet_stencil":
+                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "nearest": {"deftet_nearest":
+                [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+                "deftet_nearest_plan": [_I, _I, _I, _P]},
+    "tri_argmin": {"deftet_tri_argmin":
+                   [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
@@ -124,10 +126,10 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             path = build_all([name])[name]
             lib = ctypes.CDLL(str(path))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.deftet_error_string.argtypes = [ctypes.c_int]
             lib.deftet_error_string.restype = ctypes.c_char_p
             _libs[name] = lib

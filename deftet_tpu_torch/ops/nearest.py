@@ -14,13 +14,19 @@ nearest_neighbor_pallas).  Semantics, kept in both versions:
 * no cap on the reference count (the Pallas 16,384 cap was a VMEM limit).
 
 On a CUDA tensor it launches ``csrc/nearest.cu`` (bounded by f32
-arithmetic on the H100; references stream through shared memory, see the
-source); on a CPU tensor it runs ``nearest_neighbor_plain``.  The index is
+arithmetic on the H100, see the source: 8 queries a thread, the argmin
+deferred to a rescan of one 32-reference sub-tile, and the reference axis
+split over blocks where the query blocks do not fill the card, merged by
+the least packed (distance, index) key, which keeps every rule above); on
+a CPU tensor it runs ``nearest_neighbor_plain``.  The index is
 not differentiable; ``sided_squared_distance`` recomputes the distance
 through a gather, as deftet_tpu/ops/nearest.py:122-143 does.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -99,6 +105,29 @@ def nearest_neighbor_plain(q, r, n_valid, n_queries, chunk: int = 4096):
     return d_out, i_out
 
 
+_PLAN_KEYS = ("query_blocks", "splits", "split_len", "blocks_per_sm",
+              "scratch_words")
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(device_index: int, b: int, p: int, m: int) -> tuple:
+    lib = _cuda.library(_KERNEL)
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    with torch.cuda.device(device_index):
+        err = lib.deftet_nearest_plan(b, p, m, out)
+    _cuda.check(lib, err, _KERNEL)
+    return tuple(out)
+
+
+def kernel_plan(q, r) -> dict:
+    """The CUDA kernel's launch plan for these clouds on their card: query
+    blocks per batch, reference splits and references per split (the
+    split count that fills the card best at the kernel's occupancy),
+    resident blocks per SM, and the merge scratch in 64-bit words."""
+    return dict(zip(_PLAN_KEYS, _plan(q.device.index, q.shape[0],
+                                      q.shape[1], r.shape[1])))
+
+
 def _nearest_cuda(q, r, n_valid, n_queries):
     for name, t in (("queries", q), ("points", r), ("n_valid", n_valid),
                     ("n_queries", n_queries)):
@@ -107,12 +136,17 @@ def _nearest_cuda(q, r, n_valid, n_queries):
     b, p, _ = q.shape
     d_out = torch.empty((b, p), dtype=torch.float32, device=q.device)
     i_out = torch.empty((b, p), dtype=torch.int32, device=q.device)
+    if b * p == 0:
+        return d_out, i_out
+    words = kernel_plan(q, r)["scratch_words"]
+    scratch = torch.empty(words, dtype=torch.int64, device=q.device)
     lib = _cuda.library(_KERNEL)
     with torch.cuda.device(q.device):
         err = lib.deftet_nearest(
             q.data_ptr(), r.data_ptr(), n_valid.data_ptr(),
             n_queries.data_ptr(), d_out.data_ptr(), i_out.data_ptr(),
-            b, p, r.shape[1], _cuda.stream_handle(q.device),
+            scratch.data_ptr(), words, b, p, r.shape[1],
+            _cuda.stream_handle(q.device),
         )
     _cuda.check(lib, err, _KERNEL)
     _cuda.count_launch(_KERNEL)
