@@ -9,16 +9,28 @@ Phases, each reporting on lines of its own:
 3. parity  — the small configuration in float32: one forward + backward on
    the CPU (plain PyTorch versions of the kernels) and one on the card
    (the kernels), from the same parameters and injected draws;
+   parity_train — two res-4 steps with grad_accum=2, remat and the cosine
+   lr, card against CPU, and on the card remat's gradients against none;
+   parity_eval — the res-4 inference step, card against CPU;
 4. main    — the full-width res-50 / batch-4 train step (bench.py's
    configuration, bf16) through ``Engine``: one warm-up step and five
    timed steps, launch counts per kernel read around them;
+   eval — that engine's full-inference evaluation at 100,000 points a
+   side (validate, validate_inference, timed inference steps);
 5. kernels — each kernel on the inputs the main path gave it, held
    against its plain version on the card and timed beside its bound and
    the nearest single PyTorch call (every K1 variant of the step, with
    their launch-weighted total per step), K2 also at the eval metrics'
-   shape (100,000 against 100,000 points), then the kernels' edge cases;
-6. the ``{"kernels": [...]}`` line, then the result line
-   ``{"ok": true, "device": {...}}``.
+   shape (100,000 against 100,000 points), then K1-K3 at the inference
+   step's inputs;
+6. paper_step — bench.py's paper recipe (res 70, batch 8, grad_accum=2)
+   with and without remat, and K1-K3 at its inputs; then the kernels'
+   edge cases;
+7. cli     — ``python -m deftet_tpu_torch.cli train`` then ``eval`` in
+   subprocesses, and a restored engine's step against the uninterrupted
+   one's;
+8. the ``{"kernels": [...]}`` line (one entry per kernel and path), then
+   the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no result.
 It needs a CUDA device and the repository around it.
@@ -37,6 +49,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
 
 # NVIDIA H100 SXM published peaks (dense): HBM3 bytes/s and float32
 # CUDA-core FLOP/s.  Every kernel here computes in float32.
@@ -196,18 +209,36 @@ def parity(devices=("cpu", "cuda")):
             f"grad ratio {worst_grad} (must be <= 1)")
 
 
+def variant_key(name, args):
+    """A K1 call's variant (dtype, channels, direction); K2 and K3 have
+    one variant per path."""
+    if name == "stencil":
+        x, n, offsets, scale, in_scale = args
+        return (name, str(x.dtype).split(".")[-1], x.shape[-1],
+                "backward" if in_scale is not None else "forward")
+    return (name,)
+
+
+def shape_key(name, args):
+    """variant_key, with K2's and K3's calls told apart by their shapes."""
+    if name == "stencil":
+        return variant_key(name, args)
+    return (name, tuple(args[0].shape), tuple(args[1].shape))
+
+
 class Recorder:
     """Wraps each kernel's launch function to keep a copy of the inputs
-    of its first launch per variant during the main path, and to count
-    each variant's launches."""
+    of its first launch per key (``key_fn``) during a path, and to count
+    each key's launches."""
 
-    def __init__(self):
+    def __init__(self, key_fn=variant_key):
         from deftet_tpu_torch.ops import nearest, stencil, tri_distance
 
         self.mods = {"stencil": (stencil, "_stencil_cuda"),
                      "nearest": (nearest, "_nearest_cuda"),
                      "tri_argmin": (tri_distance, "_tri_argmin_cuda")}
         self.orig = {k: getattr(m, a) for k, (m, a) in self.mods.items()}
+        self.key_fn = key_fn
         self.inputs = {}
         self.counts = {}
 
@@ -215,12 +246,7 @@ class Recorder:
         orig = self.orig[name]
 
         def launch(*args):
-            if name == "stencil":
-                x, n, offsets, scale, in_scale = args
-                key = (name, str(x.dtype).split(".")[-1], x.shape[-1],
-                       "backward" if in_scale is not None else "forward")
-            else:
-                key = (name,)
+            key = self.key_fn(name, args)
             self.counts[key] = self.counts.get(key, 0) + 1
             if key not in self.inputs:
                 self.inputs[key] = tuple(
@@ -291,10 +317,8 @@ def main_path(config, device="cuda", occ_res=64):
         median_step_s=statistics.median(step_s), step_s=step_s,
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
         launches_total=launches, launches_per_step=LAUNCHES_PER_STEP)
-    del engine, batch
-    torch.cuda.empty_cache()
     per_variant = {k: c / (1 + TIMED_STEPS) for k, c in rec.counts.items()}
-    return rec.inputs, launches, per_variant
+    return rec.inputs, launches, per_variant, engine
 
 
 # ------------------------------------------------------------ kernel checks
@@ -341,20 +365,49 @@ def check_stencil_launches(x, n, offsets, inv_deg):
     return {"forward": fwd, "backward": bwd}
 
 
-def check_stencil(inputs, per_step):
-    """Every K1 variant of the main path, plus the bf16 GCN inputs in f32
-    (the precision="f32" path), against the plain version: equal bit for
-    bit (same f32 sums in the same order, same roundings).  Each
-    main-path variant is timed beside its bound; their times weighted by
-    launches per step give K1's device time per step."""
+def stencil_library(x, n, offsets, scale, in_scale):
+    """The library yardstick of one K1 call: a depthwise conv3d with the
+    binary stencil on the channels-last view of x (no copy), the source
+    scale applied to x before it and the output scale after it."""
     import torch.nn.functional as F
 
+    b, v, c = x.shape
+    w = torch.zeros((c, 1, 3, 3, 3), dtype=x.dtype, device=x.device)
+    for di, dj, dk in offsets:
+        w[:, 0, 1 + di, 1 + dj, 1 + dk] = 1
+    x5 = x.view(b, n, n, n, c).permute(0, 4, 1, 2, 3)
+
+    def library():
+        src = x5
+        if in_scale is not None:
+            src = (x5.float() * in_scale.view(1, 1, n, n, n)).to(x.dtype)
+        y = F.conv3d(src, w, padding=1, groups=c)
+        if scale is not None:
+            y = (y.float() * scale.view(1, 1, n, n, n)).to(x.dtype)
+        return y
+
+    def as_x(y):
+        return y.permute(0, 2, 3, 4, 1).reshape(b, v, c)
+
+    return library, as_x
+
+
+def check_stencil(inputs, per_step, label="kernel_stencil",
+                  profile_launches=True):
+    """Every K1 variant of a path, plus the bf16 GCN inputs in f32 (the
+    precision="f32" path), against the plain version: equal bit for bit
+    (same f32 sums in the same order, same roundings).  Each of the
+    path's variants is timed beside its bound and the depthwise conv3d
+    that computes the same function; their times weighted by launches
+    per step give K1's device time per step."""
     from deftet_tpu_torch.ops import stencil
 
     cases = {k: v for k, v in inputs.items() if k[0] == "stencil"}
     for way in ("forward", "backward"):
-        x, *rest = cases[("stencil", "bfloat16", 256, way)]
-        cases[("stencil", "float32", 256, way)] = (x.float(), *rest)
+        key = ("stencil", "bfloat16", 256, way)
+        if key in cases:
+            x, *rest = cases[key]
+            cases[("stencil", "float32", 256, way)] = (x.float(), *rest)
     report = {}
     step_ms = 0.0
     for key, (x, n, offsets, scale, in_scale) in sorted(cases.items(),
@@ -369,40 +422,29 @@ def check_stencil(inputs, per_step):
             ms = cuda_ms(lambda: stencil.stencil_sum(x, n, offsets, scale,
                                                      in_scale), 20)
             bms, by = stencil_bound(x, n, offsets, scale, in_scale)
+            library, as_x = stencil_library(x, n, offsets, scale, in_scale)
+            lib_err = float((as_x(library()).float() - ref.float()).abs()
+                            .max())
             row.update(ms=ms, bound_ms=bms, bound_by=by,
-                       launches_per_step=per_step[key])
+                       launches_per_step=per_step[key],
+                       library_ms=cuda_ms(library, 10),
+                       library_max_abs_err=lib_err)
             step_ms += ms * per_step[key]
         report["/".join(map(str, key[1:]))] = row
 
     # the kernels line reports the dominant call: the GCN forward, C = 256
     x, n, offsets, scale, _ = cases[("stencil", "bfloat16", 256, "forward")]
-    inv_deg = cases[("stencil", "bfloat16", 256, "backward")][4]
-    profiled = check_stencil_launches(x, n, offsets, inv_deg)
-    b, v, c = x.shape
+    profiled = None
+    if profile_launches:
+        inv_deg = cases[("stencil", "bfloat16", 256, "backward")][4]
+        profiled = check_stencil_launches(x, n, offsets, inv_deg)
     fwd = report["bfloat16/256/forward"]
     plain_ms = cuda_ms(
         lambda: stencil.stencil_sum_plain(x, n, offsets, scale), 3)
-    # the library yardstick: depthwise conv3d with the binary stencil
-    # (channels-last view of x, no copy), times the per-vertex scale
-    w = torch.zeros((c, 1, 3, 3, 3), dtype=x.dtype, device=x.device)
-    for di, dj, dk in offsets:
-        w[:, 0, 1 + di, 1 + dj, 1 + dk] = 1
-    x5 = x.view(b, n, n, n, c).permute(0, 4, 1, 2, 3)
-    s5 = scale.view(1, 1, n, n, n)
-
-    def library():
-        return (F.conv3d(x5, w, padding=1, groups=c).float() * s5).to(
-            x.dtype)
-
-    lib_err = float((library().permute(0, 2, 3, 4, 1).reshape(b, v, c)
-                     .float() - stencil.stencil_sum_plain(
-                         x, n, offsets, scale).float()).abs().max())
-    library_ms = cuda_ms(library, 10)
     worst = max(r["max_abs_err"] for r in report.values())
-    say("kernel_stencil", variants=report, step_ms=step_ms,
-        profiled_kernels=profiled, library_max_abs_err=lib_err)
+    say(label, variants=report, step_ms=step_ms, profiled_kernels=profiled)
     return dict(ms=fwd["ms"], plain_ms=plain_ms, bound_ms=fwd["bound_ms"],
-                bound_by=fwd["bound_by"], library_ms=library_ms,
+                bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
                 max_abs_err=worst, step_ms=step_ms,
                 shape=f"x {list(x.shape)} {str(x.dtype).split('.')[-1]}")
 
@@ -438,27 +480,30 @@ def check_nearest_exact(label, q, r, n_valid, n_queries):
     return d, i, float((d - d_ref).abs().max()) if d.numel() else 0.0
 
 
-def check_nearest(inputs):
-    """K2 on the main path's inputs, exact against the plain version, timed
-    beside its bound, its no-FMA ceiling and cdist + min."""
+def check_nearest(args, label="kernel_nearest", reps=20):
+    """K2 on one call's inputs of a path, exact against the plain version,
+    timed beside its bound, its no-FMA ceiling and cdist + min (where
+    cdist's (B, P, M) matrix fits in 20 GB)."""
     from deftet_tpu_torch.ops import nearest
 
-    q, r, n_valid, n_queries = inputs[("nearest",)]
-    err = check_nearest_exact("main path", q, r, n_valid, n_queries)[2]
+    q, r, n_valid, n_queries = args
+    err = check_nearest_exact(label, q, r, n_valid, n_queries)[2]
     ms = cuda_ms(lambda: nearest.nearest_neighbor(q, r, n_valid, n_queries),
-                 20)
+                 reps)
     plain_ms = cuda_ms(
-        lambda: nearest.nearest_neighbor_plain(q, r, n_valid, n_queries), 3)
+        lambda: nearest.nearest_neighbor_plain(q, r, n_valid, n_queries),
+        max(1, reps // 10))
     pairs, bms, by = nearest_bound(q, r, n_valid, n_queries)
 
     def library():  # the (B, P, M) distance matrix, then its row minima
         return torch.cdist(q, r).min(dim=-1)
 
-    library_ms = cuda_ms(library, 3)
+    fits = q.shape[0] * q.shape[1] * r.shape[1] * 4 <= 20e9
+    library_ms = cuda_ms(library, 3) if fits else None
     plan = nearest.kernel_plan(q, r)
     # built with -fmad=false: no instruction does two flops, so the
     # float32 ceiling is half the peak the bound assumes
-    say("kernel_nearest", shape=[list(q.shape), list(r.shape)],
+    say(label, shape=[list(q.shape), list(r.shape)],
         n_queries=n_queries.tolist(), n_valid=n_valid.tolist(),
         pairs=pairs, max_abs_err=err, index_differences=0, plan=plan,
         no_fma_ceiling_ms=2 * bms)
@@ -549,13 +594,14 @@ def tri_region_counts(pts, tri, mask, n_active, chunk=512):
     return counts.tolist(), faces
 
 
-def check_tri_argmin(inputs):
-    """K3 against the plain version: the same index for every point (same
-    region order and arithmetic, no FMA contraction, ties to the lowest
-    index), hence the same distance at it."""
+def check_tri_argmin(args, label="kernel_tri_argmin", reps=20):
+    """K3 on one call's inputs of a path against the plain version: the
+    same index for every point (same region order and arithmetic, no FMA
+    contraction, ties to the lowest index), hence the same distance at
+    it."""
     from deftet_tpu_torch.ops import tri_distance
 
-    pts, tri, mask, n_active = inputs[("tri_argmin",)]
+    pts, tri, mask, n_active = args
 
     def d2_at(idx):
         sel = torch.gather(tri, 1, idx.long()[:, :, None, None].expand(
@@ -570,11 +616,13 @@ def check_tri_argmin(inputs):
     n_diff = int((i != i_ref).sum())
     if n_diff or err:
         raise AssertionError(
-            f"tri_argmin: {n_diff} indices differ, distance err {err}")
+            f"tri_argmin {label}: {n_diff} indices differ, distance err "
+            f"{err}")
 
-    ms = cuda_ms(lambda: tri_distance.tri_argmin(pts, tri, mask), 20)
+    ms = cuda_ms(lambda: tri_distance.tri_argmin(pts, tri, mask), reps)
     plain_ms = cuda_ms(
-        lambda: tri_distance.tri_argmin_plain(pts, tri, mask, n_active), 3)
+        lambda: tri_distance.tri_argmin_plain(pts, tri, mask, n_active),
+        max(1, reps // 10))
     b, p, _ = pts.shape
     counts, faces = tri_region_counts(pts, tri, mask, n_active)
     pairs = sum(counts)
@@ -582,7 +630,7 @@ def check_tri_argmin(inputs):
         n * f for n, f in zip(counts, TRI_REGION_FLOPS.values()))
     n_bytes = pts.numel() * 4 + tri.numel() * 4 + mask.numel() * 4 + 4 * b * p
     bms, by = bound_ms(n_bytes, n_flops)
-    say("kernel_tri_argmin", shape=[list(pts.shape), list(tri.shape)],
+    say(label, shape=[list(pts.shape), list(tri.shape)],
         n_active=n_active.tolist(), pairs=pairs, max_abs_err=err,
         index_differences=n_diff,
         region_pairs=dict(zip(TRI_REGION_FLOPS, counts)),
@@ -591,7 +639,7 @@ def check_tri_argmin(inputs):
         # float32 ceiling is half the peak the bound assumes
         no_fma_ceiling_ms=2 * bms)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=None, max_abs_err=err,
+                library_ms=None, max_abs_err=err, no_fma_ceiling_ms=2 * bms,
                 shape=f"points {list(pts.shape)} faces {list(tri.shape)} f32")
 
 
@@ -782,6 +830,559 @@ def check_edge_cases(device="cuda"):
     say("kernel_edge_cases", **report)
 
 
+# --------------------------------------------------- train loop and eval
+def small_config(**over):
+    """bench.py's small network at res 4 in float32 (the parity phases)."""
+    from deftet_tpu_torch.config import TrainConfig
+
+    kw = dict(res=4, batch_size=2, encoder_blocks="8,1,8;16,1,4",
+              gcn_hidden="16,8", pos_mlp_hidden="8", occ_mlp_hidden="16,8",
+              n_point=256, num_sample_points=256, per_face_samples=4,
+              occ_sample=128, precision="f32")
+    kw.update(over)
+    return TrainConfig(**kw)
+
+
+def ratio(got, ref, rtol, atol) -> float:
+    """max |got - ref| / (atol + rtol |ref|): within tolerance when <= 1."""
+    got, ref = (torch.as_tensor(x).double().cpu() for x in (got, ref))
+    if not ref.numel():
+        return 0.0
+    return float(((got - ref).abs() / (atol + rtol * ref.abs())).max())
+
+
+def on_device(draws, device):
+    """Numpy draws as tensors: ids int64, everything else float32."""
+    def one(k, v):
+        ids = k == "center_idx" or (isinstance(v, np.ndarray)
+                                    and v.dtype.kind == "i")
+        return torch.tensor(v, device=device,
+                            dtype=torch.int64 if ids else torch.float32)
+
+    out = {}
+    for k, v in draws.items():
+        out[k] = (tuple(one(k, x) for x in v) if isinstance(v, tuple)
+                  else one(k, v))
+    return out
+
+
+def parity_train(devices=("cpu", DEVICE)):
+    """The res-4 / batch-4 f32 train step with grad_accum=2, remat and the
+    cosine lr, card against CPU, two steps from the same parameters and
+    injected draws, at the step tolerances: terms rtol 1e-4 / atol 1e-6,
+    the averaged gradient (Adam's first moment, 0.1 g) rtol 1e-3 /
+    atol 1e-6, each parameter's update rtol 1e-3 / atol 1e-7, and the
+    BatchNorm statistics of the first step rtol 1e-4 / atol 1e-6.
+
+    Entries whose gradient is at the level of rounding noise (biases
+    feeding a BatchNorm, whose true gradient is 0, and weight entries
+    along a BatchNorm's null direction) differ in sign between the
+    devices, and Adam moves each by ~lr whatever its size: their updates
+    are held within 3 lr a step, and the second step's running means,
+    which follow those parameters, within 2 lr; running variances stay
+    at rtol 1e-4 / atol 1e-6.  Then on the card: one
+    microbatch's gradient with remat equals the one without it, rtol 1e-5
+    with an atol of 1e-6 of the largest gradient (the noise of those
+    biases), and K2 and K3 launch once per microbatch in a step with and
+    without remat."""
+    import dataclasses
+
+    from deftet_tpu_torch import remat
+    from deftet_tpu_torch.ops import _cuda
+    from deftet_tpu_torch.train import Engine
+
+    cfg = small_config(batch_size=4, grad_accum=2, remat=True,
+                       lr_decay_steps=3)
+    rng = np.random.default_rng(12)
+    k = cfg.resolved_max_boundary_faces()
+    mb = cfg.batch_size // cfg.grad_accum
+    bary = (mb, k, cfg.per_face_samples, 1)
+    draws = [[{"noise": rng.normal(size=(mb, cfg.n_point, 3)),
+               "center_idx": rng.integers(0, 6 * cfg.res**3, cfg.occ_sample),
+               "bary_u": rng.uniform(size=bary),
+               "bary_v": rng.uniform(size=bary)}
+              for _ in range(cfg.grad_accum)] for _ in range(2)]
+    batch = bench_batch(cfg, level=1, occ_res=16)
+    state, runs = None, {}
+    for device in devices:
+        engine = Engine(cfg, device=device)
+        if state is None:
+            state = {n: v.clone() for n, v in
+                     engine.model.state_dict().items()}
+        engine.model.load_state_dict(state)
+        prepped = engine._prep_batch(batch)
+        terms, stats = [], []
+        for step in draws:
+            t = engine.train_step(prepped,
+                                  draws=[on_device(d, device) for d in step])
+            terms.append({n: float(v) for n, v in t.items()})
+            stats.append({n: v.detach().cpu().clone() for n, v in
+                          engine.model.named_buffers()})
+        names = [n for n, _ in engine.model.named_parameters()]
+        runs[device] = dict(
+            terms=terms, stats=stats,
+            update={n: (p.detach() - state[n].to(device)).cpu()
+                    for n, p in engine.model.named_parameters()},
+            mu={n: m.cpu().clone()
+                for n, m in zip(names, engine.optimizer.mu)})
+    cpu, gpu = (runs[d] for d in devices)
+    live_ratio, slack = 0.0, 0.0
+    noise = 3 * cfg.lr * len(draws)  # a noise-driven update's reach
+    for n, upd in cpu["update"].items():
+        live = cpu["mu"][n].abs() > 1e-6
+        live_ratio = max(live_ratio, ratio(gpu["update"][n][live], upd[live],
+                                           1e-3, 1e-7))
+        slack = max(slack,
+                    float((gpu["update"][n] - upd).abs().max()) / noise)
+    (s1, s2), (c1, c2) = gpu["stats"], cpu["stats"]
+    worst = {
+        "terms": max(ratio(g[n], c[n], 1e-4, 1e-6)
+                     for g, c in zip(gpu["terms"], cpu["terms"]) for n in c),
+        "batch_stats_step1": max(ratio(s1[n], v, 1e-4, 1e-6)
+                                 for n, v in c1.items()),
+        "running_var_step2": max(ratio(s2[n], v, 1e-4, 1e-6)
+                                 for n, v in c2.items() if "var" in n),
+        "running_mean_step2": max(ratio(s2[n], v, 0.0, 2 * cfg.lr)
+                                  for n, v in c2.items() if "mean" in n),
+        "mu": max(ratio(gpu["mu"][n], v, 1e-3, 1e-6)
+                  for n, v in cpu["mu"].items()),
+        "update": live_ratio,
+        "update_noise": slack,
+    }
+
+    grads, calls = {}, {}
+    for use_remat in (False, True):
+        engine = Engine(dataclasses.replace(cfg, remat=use_remat),
+                        device=DEVICE)
+        engine.model.load_state_dict(state)
+        prepped = engine._prep_batch(batch)
+        first = {n: v[:mb] for n, v in prepped.items()}
+        d = on_device(draws[0][0], DEVICE)
+
+        def loss(engine=engine, first=first, d=d):
+            return engine.forward_losses(first, train=True, draws=d)
+
+        total, _ = (remat.checkpoint(loss, engine.generator, engine.model)
+                    if use_remat else loss())
+        params = list(engine.model.parameters())
+        g = torch.autograd.grad(total, params, allow_unused=True)
+        grads[use_remat] = [torch.zeros_like(p) if x is None else x
+                            for p, x in zip(params, g)]
+        _cuda.reset_launch_counts()
+        engine.train_step(prepped,
+                          draws=[on_device(x, DEVICE) for x in draws[0]])
+        calls[use_remat] = dict(_cuda.launch_counts)
+    g_max = max(float(g.abs().max()) for g in grads[False])
+    worst["remat_grads"] = max(ratio(b, a, 1e-5, 1e-6 * g_max)
+                               for a, b in zip(grads[False], grads[True]))
+    say("parity_train", terms_cuda=gpu["terms"], terms_cpu=cpu["terms"],
+        worst_ratios=worst, launches_per_step={"no_remat": calls[False],
+                                               "remat": calls[True]})
+    if not all(v <= 1.0 for v in worst.values()):
+        raise AssertionError(f"train-loop parity failed: {worst}")
+    for use_remat, c in calls.items():
+        if c["nearest"] != cfg.grad_accum or c["tri_argmin"] != cfg.grad_accum:
+            raise AssertionError(f"remat={use_remat}: K2/K3 launches {c}, "
+                                 f"not once per microbatch")
+
+
+def eval_batch(seeds, n_surface, n_sdf, level, occ_res):
+    """Records of the port's make_example for random_shape(seed, level),
+    padded as ShapeDataset pads them (numpy)."""
+    from deftet_tpu_torch.data.pipeline import make_example
+    from deftet_tpu_torch.data.shapes import random_shape, shape_family
+
+    exs = []
+    for seed in seeds:
+        verts, faces = random_shape(seed, level=level)
+        exs.append(make_example(verts, faces, n_surface, n_sdf,
+                                np.random.default_rng(seed),
+                                occ_grid_res=occ_res))
+    b = len(exs)
+    nv = max(e["verts"].shape[0] for e in exs)
+    nf = max(e["faces"].shape[0] for e in exs)
+    batch = {k: np.stack([e[k] for e in exs])
+             for k in ("surface_points", "sdf_points", "sdf", "occ_grid")}
+    batch["verts"] = np.zeros((b, nv, 3), np.float32)
+    batch["faces"] = np.zeros((b, nf, 3), np.int32)
+    batch["n_verts"] = np.array([e["verts"].shape[0] for e in exs], np.int32)
+    batch["n_faces"] = np.array([e["faces"].shape[0] for e in exs], np.int32)
+    for i, e in enumerate(exs):
+        batch["verts"][i, :e["verts"].shape[0]] = e["verts"]
+        batch["faces"][i, :e["faces"].shape[0]] = e["faces"]
+    batch["category"] = [shape_family(s) for s in seeds]
+    return batch
+
+
+def parity_eval(devices=("cpu", DEVICE)):
+    """The res-4 / batch-2 f32 inference step, card against CPU, from the
+    same parameters and injected draws (input noise, the face ids and
+    uniforms of both samplers): every output rtol 1e-4 / atol 1e-6, the
+    CPU tests' tolerance against the JAX package.  The occupancy threshold
+    is set in the widest gap between neighbouring probabilities above the
+    median, so that there is a surface and no probability sits near it."""
+    from deftet_tpu_torch.evals import harness
+    from deftet_tpu_torch.train import Engine
+
+    n_res = 300
+    cfg = small_config(eval_points=n_res)
+    batch = eval_batch((1, 2), 256, 400, level=1, occ_res=16)
+    rng = np.random.default_rng(13)
+    k = cfg.resolved_max_boundary_faces()
+    n_gt = int(batch["n_faces"].min())
+
+    def sampler(n_faces):
+        return (rng.integers(0, n_faces, (2, n_res)),
+                rng.uniform(size=(2, n_res, 1)),
+                rng.uniform(size=(2, n_res, 1)))
+
+    draws = {"noise": rng.normal(size=(2, cfg.n_point, 3)),
+             "pred": sampler(k), "gt": sampler(n_gt)}
+    state, out = None, {}
+    for device in devices:
+        engine = Engine(cfg, device=device)
+        if state is None:
+            state = {n: v.clone() for n, v in
+                     engine.model.state_dict().items()}
+        engine.model.load_state_dict(state)
+        prepped = engine._prep_batch(batch)
+        d = on_device(draws, device)
+        if device == devices[0]:
+            _, _, logits = harness._predict(
+                engine.model, prepped, engine.statics, cfg,
+                engine.lattice_offsets, engine.tet_lattice, noise=d["noise"])
+            probs = np.sort(torch.sigmoid(logits).cpu().numpy().reshape(-1))
+            half = len(probs) // 2
+            i = half + int(np.argmax(np.diff(probs[half:])))
+            cfg.occ_threshold = float((probs[i] + probs[i + 1]) / 2)
+        out[device] = {n: float(v) for n, v in engine.inference_step()(
+            prepped, engine.statics, draws=d).items()}
+    cpu, gpu = (out[d] for d in devices)
+    worst = max(ratio(gpu[n], v, 1e-4, 1e-6) for n, v in cpu.items())
+    say("parity_eval", metrics_cuda=gpu, metrics_cpu=cpu, worst_ratio=worst,
+        occ_threshold=cfg.occ_threshold)
+    if not worst <= 1.0 or cpu["n_boundary"] <= 0:
+        raise AssertionError(f"inference parity failed: ratio {worst}, "
+                             f"n_boundary {cpu['n_boundary']}")
+
+
+EVAL_POINTS = 100_000  # deftet-eval's default (deftet_tpu/cli.py:154)
+EVAL_SDF = 20_000      # the pipeline's n_sdf default
+EVAL_RUNS = 3
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock time of ``fn`` over ``reps`` runs after one
+    warm-up, each ended by a device synchronize."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def eval_phase(engine):
+    """The main path's res-50 / batch-4 / bf16 engine after its steps,
+    evaluated on four shapes of the port's make_example (random_shape
+    0-3, level 2; 5,000 surface points, 20,000 SDF points, a 64^3
+    texture) at 100,000 surface points a side: validate and
+    validate_inference, then one warm-up and EVAL_RUNS timed inference
+    steps with the launch counts read around them, and the parts of the
+    step timed alone (the forward with the full-grid occupancy,
+    points_in_tets_soa).  Fails on a non-finite metric, on no predicted
+    surface (the engine trains on the batch until there is one, at most
+    40 steps, and says so) and on a kernel of the path never launched."""
+    from deftet_tpu_torch.evals import harness
+    from deftet_tpu_torch.ops import _cuda, point_tet
+
+    cfg = engine.config
+    cfg.eval_points = EVAL_POINTS
+    cfg.logdir = str(ROOT / "build" / "smoke_eval")  # validate's log
+    t0 = time.perf_counter()
+    batch = eval_batch(range(4), max(cfg.num_sample_points, cfg.n_point),
+                       EVAL_SDF, level=2, occ_res=64)
+    data_s = time.perf_counter() - t0
+    prepped = engine._prep_batch(batch)
+    infer = engine.inference_step()
+
+    def run():
+        gen = torch.Generator(device=engine.device).manual_seed(cfg.seed)
+        return infer(prepped, engine.statics, gen)
+
+    trained = 0
+    n_boundary = float(run()["n_boundary"])
+    while n_boundary <= 0 and trained < 40:
+        engine.train_step(prepped)
+        trained += 1
+        n_boundary = float(run()["n_boundary"])
+    if n_boundary <= 0:
+        raise AssertionError("no predicted surface after 40 steps on the "
+                             "eval batch")
+    val = engine.validate([batch])
+    val_inference = engine.validate_inference([batch])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    times = []
+    with Recorder(shape_key) as rec:
+        for i in range(1 + EVAL_RUNS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = {n: float(v) for n, v in run().items()}
+            torch.cuda.synchronize()
+            if i:
+                times.append(time.perf_counter() - t)
+    launches = dict(_cuda.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    bad = [n for n, v in out.items() if not np.isfinite(v)]
+    if bad or out["n_boundary"] <= 0:
+        raise AssertionError(f"eval: non-finite {bad} or no surface {out}")
+    idle = [n for n, c in launches.items() if c == 0]
+    if idle:
+        raise AssertionError(f"eval path never launched {idle}")
+
+    with torch.no_grad():
+        _, soa, _ = harness._predict(engine.model, prepped, engine.statics,
+                                     cfg, engine.lattice_offsets,
+                                     engine.tet_lattice)
+        predict_ms = host_ms(lambda: harness._predict(
+            engine.model, prepped, engine.statics, cfg,
+            engine.lattice_offsets, engine.tet_lattice), 3)
+        pit_ms = host_ms(lambda: point_tet.points_in_tets_soa(
+            soa, prepped["sdf_points"]), 3)
+    runs = 1 + EVAL_RUNS
+    say("eval", config=f"res={cfg.res} batch={cfg.batch_size} "
+        f"{cfg.precision} eval_points={EVAL_POINTS} n_sdf={EVAL_SDF}",
+        trained_for_surface=trained, data_s=data_s, metrics=out,
+        validate=val, validate_inference=val_inference,
+        median_infer_s=statistics.median(times), infer_s=times,
+        max_memory_allocated_bytes=peak, launches_total=launches,
+        launches_per_run={n: c / runs for n, c in launches.items()},
+        predict_ms=predict_ms, points_in_tets_ms=pit_ms,
+        points_in_tets_tests=4 * 4 * EVAL_SDF * engine.statics.n_tets)
+    return dict(inputs=rec.inputs, launches=launches,
+                budget=cfg.resolved_max_boundary_faces(),
+                per_run={k: c / runs for k, c in rec.counts.items()},
+                median_infer_s=statistics.median(times), predict_ms=predict_ms,
+                points_in_tets_ms=pit_ms)
+
+
+def check_eval_kernels(ev):
+    """K1-K3 at the inference step's inputs, exact against their plain
+    versions and timed beside their bounds: K1 in the GCN's eval forward,
+    K2 on one of the metrics' eight (4, 100k) against (4, 100k) calls, K3
+    on both Hausdorff calls (GT points against the predicted surface,
+    predicted points against the GT mesh); then the step's time split."""
+    inputs, per_run = ev["inputs"], ev["per_run"]
+    k1 = check_stencil({k: v for k, v in inputs.items() if k[0] == "stencil"},
+                       {k: c for k, c in per_run.items()
+                        if k[0] == "stencil"},
+                       label="kernel_stencil_eval", profile_launches=False)
+    (nn_key,) = [k for k in inputs if k[0] == "nearest"]
+    k2 = check_nearest(inputs[nn_key], label="kernel_nearest_eval", reps=5)
+    k2["launches_per_run"] = per_run[nn_key]
+    k3 = {}
+    for key in sorted((k for k in inputs if k[0] == "tri_argmin"), key=str):
+        side = ("gt_points_to_predicted_surface" if key[2][1] == ev["budget"]
+                else "predicted_points_to_gt_mesh")
+        k3[side] = check_tri_argmin(inputs[key], label=f"kernel_tri_{side}",
+                                    reps=5)
+        k3[side]["launches_per_run"] = per_run[key]
+    run_ms = ev["median_infer_s"] * 1e3
+    split = {"predict_forward_and_occupancy_ms": ev["predict_ms"],
+             "points_in_tets_ms": ev["points_in_tets_ms"],
+             "k2_ms": k2["ms"] * per_run[nn_key],
+             "k3_ms": sum(r["ms"] for r in k3.values()),
+             "step_ms": run_ms}
+    split["rest_ms"] = run_ms - sum(v for n, v in split.items()
+                                    if n != "step_ms")
+    say("eval_split", **split)
+    return {"stencil": k1, "nearest": k2, "tri_argmin": k3}
+
+
+PAPER_STEPS = 3
+# launches per step at grad_accum=2: each microbatch runs the GCN's four
+# K1 forwards and the Laplacian's (again in remat's recompute) and five
+# K1 backwards, one K2 and one K3
+PAPER_LAUNCHES = {False: {"stencil": 20, "nearest": 2, "tri_argmin": 2},
+                  True: {"stencil": 30, "nearest": 2, "tri_argmin": 2}}
+
+
+def paper_config(remat: bool):
+    """bench.py's paper recipe (bench.py:373-397: res 70, batch 8,
+    grad_accum=2) on the bench configuration, unreduced."""
+    cfg = bench_config()
+    cfg.res, cfg.batch_size, cfg.grad_accum, cfg.remat = 70, 8, 2, remat
+    return cfg
+
+
+def paper_step():
+    """The paper recipe with and without remat: one warm-up and
+    PAPER_STEPS timed steps each, launches per step checked, median step
+    time and peak memory; the kernels' inputs kept from the run without
+    remat."""
+    from deftet_tpu_torch.ops import _cuda
+    from deftet_tpu_torch.train import Engine
+
+    rows = {}
+    for use_remat in (True, False):
+        cfg = paper_config(use_remat)
+        t0 = time.perf_counter()
+        engine = Engine(cfg, device=DEVICE)
+        t_init = time.perf_counter() - t0
+        batch = engine._prep_batch(bench_batch(cfg, occ_res=64))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        expected = PAPER_LAUNCHES[use_remat]
+        step_s = []
+        _cuda.reset_launch_counts()
+        with Recorder() as rec:
+            for step in range(1 + PAPER_STEPS):
+                before = dict(_cuda.launch_counts)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                terms = engine.train_step(batch)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                counts = {n: _cuda.launch_counts[n] - before[n]
+                          for n in expected}
+                terms = {n: float(v) for n, v in terms.items()}
+                say("paper_step_step", remat=use_remat, step=step,
+                    warmup=step == 0, seconds=dt, launches=counts,
+                    terms=terms)
+                bad = [n for n, v in terms.items() if not np.isfinite(v)]
+                if bad:
+                    raise AssertionError(f"non-finite loss terms: {bad}")
+                if counts != expected:
+                    raise AssertionError(
+                        f"launches {counts} != expected {expected}")
+                if step:
+                    step_s.append(dt)
+        rows[use_remat] = dict(
+            engine_init_s=t_init, median_step_s=statistics.median(step_s),
+            step_s=step_s,
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+            launches_total=dict(_cuda.launch_counts),
+            launches_per_step=expected)
+        if not use_remat:
+            inputs = rec.inputs
+            per_step = {k: c / (1 + PAPER_STEPS)
+                        for k, c in rec.counts.items()}
+        del engine, batch
+        torch.cuda.empty_cache()
+    say("paper_step", config=f"res={cfg.res} batch={cfg.batch_size} "
+        f"{cfg.precision} grad_accum={cfg.grad_accum}",
+        remat=rows[True], no_remat=rows[False])
+    return inputs, per_step, rows
+
+
+def check_paper_kernels(inputs, per_step):
+    """K1-K3 at the paper recipe's inputs (res 70, microbatch 4), exact
+    against their plain versions and timed beside their bounds."""
+    return {
+        "stencil": check_stencil(inputs, per_step,
+                                 label="kernel_stencil_paper",
+                                 profile_launches=False),
+        "nearest": check_nearest(inputs[("nearest",)],
+                                 label="kernel_nearest_paper"),
+        "tri_argmin": check_tri_argmin(inputs[("tri_argmin",)],
+                                       label="kernel_tri_argmin_paper"),
+    }
+
+
+# the verify skill's tiny configuration
+CLI_TINY = ["--res", "4", "--batch_size", "2", "--n_point", "128",
+            "--num_sample_points", "256", "--occ_sample", "128",
+            "--per_face_samples", "4", "--encoder_blocks", "8,1,8;16,1,4",
+            "--gcn_hidden", "16,8", "--pos_mlp_hidden", "8",
+            "--occ_mlp_hidden", "16,8", "--epochs", "2", "--n_shapes", "6"]
+METRICS = ("occ_iou", "val_iou_max", "f_score", "f_score_extend", "chamfer",
+           "chamfer_l1", "hausdorff", "hausdorff_max", "n_boundary",
+           "boundary_overflow")
+
+
+def cli_phase():
+    """The two commands, each in a subprocess on the card, at the verify
+    skill's tiny configuration: train for 2 epochs, then eval on its
+    experiment (100,000 points a side); both exit 0 and the report holds
+    every metric.  Then, in this process, an engine restored from the
+    'last' checkpoint takes the step the uninterrupted engine takes: the
+    terms, parameters and statistics rtol 1e-5 / atol 1e-7 (kernels with
+    atomics may reorder float sums on the card)."""
+    import shutil
+
+    from deftet_tpu_torch.config import TrainConfig
+    from deftet_tpu_torch.data import ShapeDataset, batch_iterator
+    from deftet_tpu_torch.train import Engine
+
+    work = ROOT / "build" / "smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+
+    def run(*args):
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "deftet_tpu_torch.cli",
+                              *args], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        if out.returncode:
+            raise RuntimeError(f"cli {args[0]} exited {out.returncode}:\n"
+                               f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        return time.perf_counter() - t
+
+    train_s = run("train", "--device", DEVICE, *CLI_TINY, "--dataset_root",
+                  str(work / "data"), "--logdir", str(work / "exp"))
+    (exp,) = (work / "exp").iterdir()
+    eval_s = run("eval", "--device", DEVICE, "--experiment_path", str(exp),
+                 "--eval_points", str(EVAL_POINTS))
+    report = json.loads((exp / "result_update.json").read_text())
+    metrics = report["metrics"]
+    bad = [n for n in METRICS if not np.isfinite(metrics.get(n, np.nan))]
+    if bad or report["device"] != DEVICE:
+        raise AssertionError(f"eval report lacks {bad}: {report}")
+
+    config = TrainConfig.load(str(exp / "config.json"))
+    config.logdir = str(work / "restore")
+    split = json.loads((exp / "split.json").read_text())
+    b1, b2 = list(batch_iterator(ShapeDataset(split["train"]),
+                                 config.batch_size))[:2]
+    engine = Engine(config, device=DEVICE)
+    engine.train_step(engine._prep_batch(b1))
+    engine.save()
+    terms = engine.train_step(engine._prep_batch(b2))
+    fresh = Engine(config, device=DEVICE, experiment=engine.experiment)
+    fresh.restore("last")
+    terms2 = fresh.train_step(fresh._prep_batch(b2))
+    pairs = ([(terms2[n], v) for n, v in terms.items()]
+             + list(zip(fresh.model.parameters(), engine.model.parameters()))
+             + list(zip(fresh.model.buffers(), engine.model.buffers())))
+    worst = max(ratio(a.detach(), b.detach(), 1e-5, 1e-7) for a, b in pairs)
+    identical = all(torch.equal(a, b) for a, b in pairs)
+    say("cli", train_s=train_s, eval_s=eval_s, metrics=metrics,
+        restore_worst_ratio=worst, restore_bit_identical=identical)
+    if not worst <= 1.0:
+        raise AssertionError(f"restored engine diverged: ratio {worst}")
+
+
+def kernel_entry(name, res, launches, path):
+    source, replaces = KERNEL_INFO[name]
+    entry = {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+        "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+        "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+        "shape": res["shape"], "path": path,
+    }
+    for extra in ("step_ms", "no_fma_ceiling_ms", "launches_per_run"):
+        if extra in res:
+            entry[extra] = res[extra]
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -792,37 +1393,59 @@ def main() -> int:
         raise RuntimeError("deftet_tpu_torch must come from this checkout")
 
     t0 = time.perf_counter()
-    smi = header()
-    build()
-    parity()
-    inputs, launches, per_variant = main_path(bench_config())
-    results = {
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    smi = timed("header", header)
+    timed("build", build)
+    timed("parity", parity)
+    timed("parity_train", parity_train)
+    timed("parity_eval", parity_eval)
+    inputs, launches, per_variant, engine = timed("main", main_path,
+                                                  bench_config())
+    ev = timed("eval", eval_phase, engine)
+    del engine
+    torch.cuda.empty_cache()
+    results = timed("kernels", lambda: {
         "stencil": check_stencil(inputs, per_variant),
-        "nearest": check_nearest(inputs),
-        "tri_argmin": check_tri_argmin(inputs),
-    }
-    nearest_eval = check_nearest_eval()
-    check_edge_cases()
+        "nearest": check_nearest(inputs[("nearest",)]),
+        "tri_argmin": check_tri_argmin(inputs[("tri_argmin",)]),
+    })
+    nearest_eval = timed("kernel_nearest_eval", check_nearest_eval)
+    eval_kernels = timed("eval_kernels", check_eval_kernels, ev)
+    paper_inputs, paper_per_step, paper_rows = timed("paper_step", paper_step)
+    paper_kernels = timed("paper_kernels", check_paper_kernels, paper_inputs,
+                          paper_per_step)
+    timed("edge_cases", check_edge_cases)
+    timed("cli", cli_phase)
+
     kernels = []
     for name, res in results.items():
-        source, replaces = KERNEL_INFO[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-            "shape": res["shape"],
-        })
-        for extra in ("step_ms", "no_fma_ceiling_ms"):
-            if extra in res:
-                kernels[-1][extra] = res[extra]
+        kernels.append(kernel_entry(name, res, launches[name], "main"))
         if name == "nearest":
             kernels[-1]["eval_shape"] = {
                 k: nearest_eval[k] for k in ("shape", "ms", "plain_ms",
                                              "bound_ms", "no_fma_ceiling_ms",
                                              "plan")}
-    say("done", seconds=time.perf_counter() - t0, card=smi)
+    for name, res in paper_kernels.items():
+        kernels.append(kernel_entry(
+            name, res, paper_rows[False]["launches_total"][name],
+            "paper_step (res 70, batch 8, grad_accum 2, no remat)"))
+    kernels.append(kernel_entry("stencil", eval_kernels["stencil"],
+                                ev["launches"]["stencil"], "eval"))
+    kernels.append(kernel_entry("nearest", eval_kernels["nearest"],
+                                ev["launches"]["nearest"], "eval"))
+    for side, res in eval_kernels["tri_argmin"].items():
+        kernels.append(kernel_entry("tri_argmin", res,
+                                    ev["launches"]["tri_argmin"],
+                                    f"eval: Hausdorff {side}"))
+    say("done", seconds=time.perf_counter() - t0, phase_seconds=phase_s,
+        card=smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

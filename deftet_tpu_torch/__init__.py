@@ -8,14 +8,19 @@ package are hand-written CUDA C++ kernels for ``sm_90a`` here
 Sub-packages mirror the JAX package:
 
 * ``tetgrid`` — numpy grid / lattice-face builders (own copies).
-* ``data``    — procedural shapes and the occupancy texture (own copies).
-* ``ops``     — geometry, voxelization and the three kernels: the lattice
-  stencil (``ops.stencil``), nearest neighbour (``ops.nearest``) and
-  triangle argmin (``ops.tri_distance``).
+* ``data``    — procedural shapes, the occupancy texture and the synthetic
+  dataset (own copies).
+* ``ops``     — geometry, voxelization, ray-parity occupancy, point-in-tet
+  and the three kernels: the lattice stencil (``ops.stencil``), nearest
+  neighbour (``ops.nearest``) and triangle argmin (``ops.tri_distance``).
 * ``nn``      — PVCNN encoders, GCN position decoder, occupancy MLP.
 * ``losses``  — SoA tet regularizers and the compacted surface losses.
-* ``evals``   — the occupancy IoU used by the train step.
-* ``train``   — statics, ``forward_losses``, the optimizer and ``Engine``.
+* ``evals``   — the metrics and the full-inference evaluation.
+* ``train``   — statics, ``forward_losses``, the optimizer, the train and
+  validation steps, checkpoints and ``Engine``.
+* ``remat``   — rematerialization that keeps named no-grad results.
+* ``utils``   — OBJ IO and named timers.
+* ``cli``     — ``python -m deftet_tpu_torch.cli train|eval``.
 * ``convert`` — flax ``{"params", "batch_stats"}`` to a torch state dict.
 
 Importing the package compiles nothing and does not touch CUDA; kernels

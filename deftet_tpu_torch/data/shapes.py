@@ -160,6 +160,11 @@ def make_torus(rng: np.random.Generator, n_u: int = 48, n_v: int = 24):
 _FAMILIES = ("blob", "ellipsoid", "box", "torus")
 
 
+def shape_family(seed: int) -> str:
+    """Category name of random_shape(seed) (round-robin by seed)."""
+    return _FAMILIES[seed % len(_FAMILIES)]
+
+
 def random_shape(seed: int, level: int = 3):
     """Deterministic random watertight mesh; family round-robins by seed."""
     rng = np.random.default_rng(seed)

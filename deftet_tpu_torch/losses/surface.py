@@ -19,9 +19,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.lattice import lattice_edge_quadratics
+from ..ops.lattice import lattice_boundary_info, lattice_edge_quadratics
 from ..ops.nearest import sided_squared_distance
 from ..ops.tri_distance import point_to_mesh_squared_distance
+from ..remat import saved
 
 EPS = 1e-10
 
@@ -57,12 +58,35 @@ def _compact_indices(boundary_mask_bxf: torch.Tensor, k: int):
                              boundary_mask_bxf.dtype)
 
 
+def boundary_faces_from_occupancy(occ_bxt: torch.Tensor,
+                                  face_fx3: torch.Tensor, face_lattice):
+    """Oriented boundary faces and their mask from per-tet occupancy over
+    the class-major lattice faces: a face is boundary iff exactly one of
+    its two owners is occupied, and its vertex order flips where the first
+    owner is (sign -1).  Returns (faces (B, F, 3) int64, mask (B, F))."""
+    mask, sign = lattice_boundary_info(occ_bxt, face_lattice)
+    faces = torch.where((sign < 0)[..., None], face_fx3.flip(-1)[None],
+                        face_fx3[None])
+    return faces, mask
+
+
+def select_boundary_subset(faces_bxfx3, boundary_mask_bxf, max_faces: int):
+    """(faces (B, k, 3), mask (B, k)) of the first k boundary faces of a
+    per-sample face list; slots past the boundary count have mask 0."""
+    k = min(max_faces, boundary_mask_bxf.shape[1])
+    idx, valid = _compact_indices(boundary_mask_bxf, k)
+    sel_faces = torch.gather(faces_bxfx3, 1, idx[:, :, None].expand(-1, -1, 3))
+    sel_mask = torch.gather(boundary_mask_bxf, 1, idx) * valid
+    return sel_faces, sel_mask
+
+
 def select_boundary_subset_static(face_fx3, boundary_mask_bxf,
                                   max_faces: int):
     """(faces (B, k, 3), mask (B, k), idx (B, k)) of the first k boundary
     faces of a batch-invariant face list."""
     k = min(max_faces, boundary_mask_bxf.shape[1])
-    idx, valid = _compact_indices(boundary_mask_bxf, k)
+    idx, valid = saved("boundary_compact_idx", "boundary_compact_valid",
+                       lambda: _compact_indices(boundary_mask_bxf, k))
     sel_faces = face_fx3[idx]
     sel_mask = torch.gather(boundary_mask_bxf, 1, idx) * valid
     return sel_faces, sel_mask, idx

@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from ..remat import saved
 from . import _cuda
 
 _KERNEL = "nearest"
@@ -171,9 +172,10 @@ def nearest_neighbor(query_bxpx3, points_bxmx3, n_valid=None,
 def sided_squared_distance(a_bxnx3, b_bxmx3, n_valid_b=None, n_valid_a=None):
     """Differentiable one-sided squared distance a -> b: the argmin runs
     without autograd, the distance is recomputed through the gather of
-    the nearest point, so gradients reach both clouds."""
-    _, idx = nearest_neighbor(a_bxnx3, b_bxmx3, n_valid_b,
-                              n_queries=n_valid_a)
+    the nearest point, so gradients reach both clouds.  The index is kept
+    for a rematerialized backward (``remat.saved``)."""
+    idx = saved("nn_argmin_idx", lambda: nearest_neighbor(
+        a_bxnx3, b_bxmx3, n_valid_b, n_queries=n_valid_a)[1])
     closest = torch.gather(
         b_bxmx3, 1, idx.long()[..., None].expand(-1, -1, 3)
     )

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..remat import saved
 from . import _cuda
 
 _KERNEL = "tri_argmin"
@@ -173,13 +174,15 @@ def point_to_mesh_squared_distance(points_bxpx3, tri_bxfx3x3,
                                    face_mask_bxf=None):
     """(squared distance (B, P), argmin face (B, P) int32) to the nearest
     unmasked triangle; differentiable w.r.t. points and triangles through
-    the recompute on the chosen face.  0 where every face is masked."""
+    the recompute on the chosen face.  0 where every face is masked.  The
+    index is kept for a rematerialized backward (``remat.saved``)."""
     pts = points_bxpx3.float()
     tri = tri_bxfx3x3.float()
     if face_mask_bxf is None:
         face_mask_bxf = torch.ones(tri.shape[:2], dtype=torch.float32,
                                    device=tri.device)
-    idx = tri_argmin(pts, tri.contiguous(), face_mask_bxf.float().contiguous())
+    idx = saved("tri_argmin_idx", lambda: tri_argmin(
+        pts, tri.contiguous(), face_mask_bxf.float().contiguous()))
     best = torch.gather(
         tri, 1, idx.long()[:, :, None, None].expand(-1, -1, 3, 3)
     )

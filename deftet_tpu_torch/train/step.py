@@ -1,12 +1,13 @@
-"""The 3D-supervised train step: ``forward_losses``, the optimizer and one
-update (torch port of deftet_tpu/train/step.py, lattice path,
-``grad_accum = 1`` and no rematerialization).
+"""The 3D-supervised train step: ``forward_losses``, the optimizer, one
+update (with gradient accumulation and rematerialization) and the
+validation step (torch port of deftet_tpu/train/step.py, lattice path).
 
 Random draws happen where the JAX step draws them — input noise, the
 occupancy center subsample (with replacement), dropout, the chamfer
 barycentrics — but from a ``torch.Generator``.  ``draws`` injects any of
 them (``noise``, ``center_idx``, ``bary_u``, ``bary_v``) so a test can
-hand both frameworks the same numbers.
+hand both frameworks the same numbers; with ``grad_accum > 1`` it is a
+list with one such dict per microbatch.
 
 loss = lambda_occ * occ + lambda_def * (area * volume + edge * edge +
        lap * lap + surf * surface_align + delta * delta + normal * normal
@@ -17,8 +18,11 @@ from __future__ import annotations
 
 from typing import Dict, Sequence
 
+import math
+
 import torch
 
+from .. import remat
 from ..config import TrainConfig
 from ..evals.metrics import iou
 from ..losses.geometry import (
@@ -32,6 +36,7 @@ from ..losses.geometry import (
 )
 from ..losses.surface import occupancy_bce, surface_align_losses
 from ..nn.gcn import LatticeAdjacency
+from ..ops.check_sign import check_sign
 from ..ops.lattice import lattice_boundary_info
 from ..ops.voxelize import occupancy_from_grid_soa
 from .statics import GridStatics
@@ -43,18 +48,43 @@ class ClippedAdam:
 
     Clipping scales by ``max_norm / norm`` only when ``norm >= max_norm``
     (not torch's ``max_norm / (norm + 1e-6)``).  Adam is optax's default:
-    bias-corrected moments, eps 1e-8 outside the square root, constant lr.
+    bias-corrected moments, eps 1e-8 outside the square root.  With
+    ``decay_steps > 0`` the lr follows optax.cosine_decay_schedule: update
+    n (0-based) uses ``lr * ((1 - a) * (1 + cos(pi * min(n, D) / D)) / 2
+    + a)`` with ``a = final_scale``; otherwise it is constant.
     """
 
     def __init__(self, params: Sequence[torch.Tensor], lr: float,
                  max_norm: float | None = None, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 b2: float = 0.999, eps: float = 1e-8,
+                 decay_steps: int = 0, final_scale: float = 0.1):
         self.params = list(params)
         self.lr, self.max_norm = lr, max_norm
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.decay_steps, self.final_scale = decay_steps, final_scale
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+
+    def lr_at(self, n: int) -> float:
+        """The lr of update ``n`` (0-based)."""
+        if self.decay_steps <= 0:
+            return self.lr
+        d = self.decay_steps
+        cosine = 0.5 * (1.0 + math.cos(math.pi * min(n, d) / d))
+        a = self.final_scale
+        return self.lr * ((1.0 - a) * cosine + a)
+
+    def state_dict(self) -> dict:
+        return {"mu": [m.detach().clone() for m in self.mu],
+                "nu": [v.detach().clone() for v in self.nu],
+                "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        with torch.no_grad():
+            for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+                dst.copy_(src)
+        self.count = int(state["count"])
 
     def clip(self, grads):
         if self.max_norm is None:
@@ -67,6 +97,7 @@ class ClippedAdam:
     @torch.no_grad()
     def step(self, grads) -> None:
         grads = self.clip(grads)
+        lr = self.lr_at(self.count)
         self.count += 1
         c1 = 1.0 - self.b1**self.count
         c2 = 1.0 - self.b2**self.count
@@ -74,14 +105,14 @@ class ClippedAdam:
             mu.copy_((1.0 - self.b1) * g + self.b1 * mu)
             nu.copy_((1.0 - self.b2) * (g * g) + self.b2 * nu)
             update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-            p.add_(-self.lr * update)
+            p.add_(-lr * update)
 
 
 def make_optimizer(config: TrainConfig, params) -> ClippedAdam:
-    if config.lr_decay_steps:
-        raise NotImplementedError("the cosine lr schedule is not ported")
     clip = config.grad_norm_clip if config.grad_norm else None
-    return ClippedAdam(params, config.lr, clip)
+    return ClippedAdam(params, config.lr, clip,
+                       decay_steps=max(config.lr_decay_steps, 0),
+                       final_scale=config.lr_final_scale)
 
 
 def _center_subsample_idx(generator, n_tets: int, k: int, device):
@@ -140,12 +171,18 @@ def forward_losses(
     soa = gather_tet_soa_lattice(tet_pos, config.res, tet_lattice)
     cx, cy, cz = tet_centers_soa(soa)
 
-    if config.occ_source != "grid" or "occ_grid" not in batch:
-        raise NotImplementedError(
-            "only occ_source='grid' with an occupancy texture is ported")
-    center_occ = occupancy_from_grid_soa(
-        batch["occ_grid"], cx.detach(), cy.detach(), cz.detach(),
-        interp=config.occ_grid_interp)
+    # GT occupancy at the deformed centers, no gradient: one read of the
+    # occupancy texture, or the +z ray parity over the GT mesh; kept, not
+    # recomputed, by a rematerialized backward
+    if config.occ_source == "grid" and "occ_grid" in batch:
+        center_occ = remat.saved("center_occ", lambda: occupancy_from_grid_soa(
+            batch["occ_grid"], cx.detach(), cy.detach(), cz.detach(),
+            interp=config.occ_grid_interp))
+    else:
+        centers = torch.stack([cx, cy, cz], dim=-1).detach()
+        center_occ = remat.saved("center_occ", lambda: check_sign(
+            batch["verts"], batch["faces"], centers,
+            n_valid_faces=batch["n_faces"]))
 
     b_zero = torch.zeros((b,), device=device)
     use_def = config.lambda_def > 0.0
@@ -230,20 +267,70 @@ def forward_losses(
     return total, terms
 
 
+def _microbatches(batch, accum: int):
+    b = batch["surface_points"].shape[0]
+    if b % accum:
+        raise ValueError(f"batch {b} does not split into {accum} microbatches")
+    m = b // accum
+    return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+            for i in range(accum)]
+
+
 def train_step(model, optimizer: ClippedAdam, batch, statics: GridStatics,
                config: TrainConfig, generator: torch.Generator | None = None,
                lattice_offsets=None, tet_lattice=None, face_lattice=None,
                draws=None):
-    """One optimizer update; returns the detached loss terms + "total"."""
+    """One optimizer update; returns the detached loss terms + "total".
+
+    With ``grad_accum = a > 1`` the batch runs as ``a`` sequential
+    microbatches: BatchNorm statistics carry from one to the next, the
+    gradients are summed then divided by ``a``, the terms averaged, and
+    clipping and Adam apply once.  With ``remat`` each microbatch's
+    forward is recomputed in its backward (``remat.checkpoint``)."""
+    accum = max(int(config.grad_accum), 1)
+    micro = _microbatches(batch, accum) if accum > 1 else [batch]
+    if draws is None or isinstance(draws, dict):
+        draws = [draws] * accum
+    if len(draws) != accum:
+        raise ValueError(f"{len(draws)} draws for {accum} microbatches")
+    g_sum, t_sum = None, None
+    for mb, mb_draws in zip(micro, draws):
+        def loss(mb=mb, mb_draws=mb_draws):
+            return forward_losses(
+                model, mb, statics, config, generator, train=True,
+                lattice_offsets=lattice_offsets, tet_lattice=tet_lattice,
+                face_lattice=face_lattice, draws=mb_draws)
+
+        if config.remat:
+            total, terms = remat.checkpoint(loss, generator, model)
+        else:
+            total, terms = loss()
+        grads = torch.autograd.grad(total, optimizer.params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(optimizer.params, grads)]
+        terms = {k: v.detach() for k, v in terms.items()}
+        terms["total"] = total.detach()
+        if g_sum is None:
+            g_sum, t_sum = grads, terms
+        else:
+            g_sum = [a + g for a, g in zip(g_sum, grads)]
+            t_sum = {k: t_sum[k] + v for k, v in terms.items()}
+    if accum > 1:
+        g_sum = [g / accum for g in g_sum]
+        t_sum = {k: v / accum for k, v in t_sum.items()}
+    optimizer.step(g_sum)
+    return t_sum
+
+
+@torch.no_grad()
+def eval_step(model, batch, statics: GridStatics, config: TrainConfig,
+              generator: torch.Generator | None = None, lattice_offsets=None,
+              tet_lattice=None, face_lattice=None, draws=None):
+    """Validation: the loss terms, "total" and ``occ_iou`` without
+    gradients, BatchNorm reading its running statistics."""
     total, terms = forward_losses(
-        model, batch, statics, config, generator, train=True,
+        model, batch, statics, config, generator, train=False,
         lattice_offsets=lattice_offsets, tet_lattice=tet_lattice,
-        face_lattice=face_lattice, draws=draws,
-    )
-    grads = torch.autograd.grad(total, optimizer.params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(optimizer.params, grads)]
-    optimizer.step(grads)
-    terms = {k: v.detach() for k, v in terms.items()}
-    terms["total"] = total.detach()
+        face_lattice=face_lattice, draws=draws)
+    terms["total"] = total
     return terms

@@ -49,3 +49,35 @@ def test_port_imports_without_jax_or_cuda():
     assert report["deftet_tpu"] == []
     assert report["cuda_initialized"] is False
     assert report["libraries_loaded"] == 0
+
+
+NEW_MODULES = ("cli", "remat", "utils", "utils.objio", "utils.timing",
+               "data.pipeline", "evals.harness", "evals.metrics",
+               "ops.check_sign", "ops.point_tet", "train.checkpoint")
+
+PROBE_NEW = r"""
+import importlib, json, sys
+names = sys.argv[1:]
+for name in names:
+    importlib.import_module("deftet_tpu_torch." + name)
+import torch
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib", "flax",
+                                                 "optax", "orbax"))),
+    "deftet_tpu": sorted(m for m in sys.modules
+                         if m == "deftet_tpu" or m.startswith("deftet_tpu.")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def test_train_eval_and_cli_modules_import_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", PROBE_NEW, *NEW_MODULES],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report == {"jax": [], "deftet_tpu": [], "cuda_initialized": False}
