@@ -5,7 +5,7 @@
 Phases, each reporting on lines of its own:
 
 1. header  — torch / CUDA versions and the card's name and power limit;
-2. build   — the three CUDA kernels (csrc/*.cu), compiled anew, in parallel;
+2. build   — the four CUDA kernels (csrc/*.cu), compiled anew, in parallel;
 3. parity  — the small configuration in float32: one forward + backward on
    the CPU (plain PyTorch versions of the kernels) and one on the card
    (the kernels), from the same parameters and injected draws;
@@ -29,7 +29,16 @@ Phases, each reporting on lines of its own:
 7. cli     — ``python -m deftet_tpu_torch.cli train`` then ``eval`` in
    subprocesses, and a restored engine's step against the uninterrupted
    one's;
-8. the ``{"kernels": [...]}`` line (one entry per kernel and path), then
+8. the 2D-supervision renderer: render_parity (a small scene's mov and
+   fix stages and one frame, card against CPU); render (the full-width
+   protocol scene through run_pipeline: res-40 grid, k 300, carves,
+   carve_and_subdivide at the real tet budget, four test-PSNR
+   evaluations); render_subdiv (the bundled carved snapshot split 1->8,
+   20 steps and a frame); render_split (one step and one frame split into
+   their parts); kernel_raster_hit (the hit kernel against its plain
+   version at each path's inputs and at edge cases, timed against its
+   bound); render_cli (``cli render`` in a subprocess);
+9. the ``{"kernels": [...]}`` line (one entry per kernel and path), then
    the result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises, so the script exits non-zero and prints no result.
@@ -38,6 +47,7 @@ It needs a CUDA device and the repository around it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -59,7 +69,8 @@ PEAK_F32 = 67e12
 # Kernel launches per full-width train step (see PERF.md): the stencil
 # runs 4x in the GCN (C = 256) and once for the Laplacian term (C = 3),
 # each with its backward; chamfer and the analytic term launch once each.
-LAUNCHES_PER_STEP = {"stencil": 10, "nearest": 1, "tri_argmin": 1}
+LAUNCHES_PER_STEP = {"stencil": 10, "nearest": 1, "tri_argmin": 1,
+                     "raster_hit": 0}
 TIMED_STEPS = 5
 
 KERNEL_INFO = {
@@ -69,6 +80,10 @@ KERNEL_INFO = {
                 "deftet_tpu/ops/nearest_pallas.py:33"),
     "tri_argmin": ("deftet_tpu_torch/csrc/tri_argmin.cu",
                    "deftet_tpu/ops/tri_distance_pallas.py:32"),
+    # replaces XLA code, not a Pallas kernel: the hit pass of the JAX
+    # rasterizer (a scan merging a (pixels, k + chunk) top-k per chunk)
+    "raster_hit": ("deftet_tpu_torch/csrc/raster_hit.cu",
+                   "deftet_tpu/render/raster.py:89"),
 }
 
 
@@ -231,12 +246,12 @@ class Recorder:
     of its first launch per key (``key_fn``) during a path, and to count
     each key's launches."""
 
-    def __init__(self, key_fn=variant_key):
+    def __init__(self, key_fn=variant_key, mods=None):
         from deftet_tpu_torch.ops import nearest, stencil, tri_distance
 
-        self.mods = {"stencil": (stencil, "_stencil_cuda"),
-                     "nearest": (nearest, "_nearest_cuda"),
-                     "tri_argmin": (tri_distance, "_tri_argmin_cuda")}
+        self.mods = mods or {"stencil": (stencil, "_stencil_cuda"),
+                             "nearest": (nearest, "_nearest_cuda"),
+                             "tri_argmin": (tri_distance, "_tri_argmin_cuda")}
         self.orig = {k: getattr(m, a) for k, (m, a) in self.mods.items()}
         self.key_fn = key_fn
         self.inputs = {}
@@ -1142,7 +1157,8 @@ def eval_phase(engine):
     bad = [n for n, v in out.items() if not np.isfinite(v)]
     if bad or out["n_boundary"] <= 0:
         raise AssertionError(f"eval: non-finite {bad} or no surface {out}")
-    idle = [n for n, c in launches.items() if c == 0]
+    idle = [n for n in ("stencil", "nearest", "tri_argmin")
+            if launches[n] == 0]
     if idle:
         raise AssertionError(f"eval path never launched {idle}")
 
@@ -1367,6 +1383,555 @@ def cli_phase():
         raise AssertionError(f"restored engine diverged: ratio {worst}")
 
 
+# ------------------------------------------------------------ the renderer
+# The full-width 2D-supervision run: make_nerf_protocol_scene's defaults
+# (400x400, 100 train / 8 val / 25 test views) on RenderOptConfig's
+# defaults (res-40 Kuhn grid, k 300, 16x16 tile sampling at 4 %, the real
+# tet budget) with the stages cut to 30 steps and a carve every 10.
+RENDER_CFG = dict(sublevels=1, steps_mov=30, steps_fix=30, delete_every=10)
+RENDER_SUBDIV_STEPS = 20
+SUBDIV_SCENE = ROOT / "tests" / "assets" / "bench_scene.npz"
+FRAME_TILES = 25 * 25  # a 400x400 frame in 16x16 tiles
+# raster_hit builds with -fmad=false: no instruction does two flops
+PEAK_F32_NO_FMA = PEAK_F32 / 2
+# flops of a (pixel, candidate) pair with the face-only terms hoisted: two
+# edge functions (2 differences, 2 products, 1 difference each), two
+# divisions, w1 (2); z of a pair inside the triangle (3 products, 2 sums);
+# per tile and candidate, the denominator (7) and 4 face-only differences
+HIT_PAIR_FLOPS, HIT_Z_FLOPS, HIT_FACE_FLOPS = 14, 5, 11
+
+
+def hit_kind(args):
+    """The path of one raster_hit call, by its layout: the coverage count
+    of a calibration (k 0), a 400x400 full frame, or training tiles."""
+    pix, ranges, face_z, face_img, cand, offsets, tile_pixels, k = args
+    if k == 0:
+        return "count"
+    if offsets.shape[0] - 1 == FRAME_TILES and tile_pixels == 256:
+        return "frame"
+    return "train"
+
+
+def hit_recorder():
+    """A Recorder of raster_hit's launches, keyed by ``hit_kind``."""
+    from deftet_tpu_torch.render import raster
+
+    return Recorder(lambda name, args: hit_kind(args),
+                    {"raster_hit": (raster, "_raster_hit_cuda")})
+
+
+def protocol_scene():
+    from deftet_tpu_torch.render import optimize as ro
+
+    t = time.perf_counter()
+    data = ro.make_nerf_protocol_scene(device=DEVICE)
+    torch.cuda.synchronize()
+    images = data[0]
+    say("render_scene", seconds=time.perf_counter() - t,
+        images=list(images.shape), views=[len(s) for s in data[3]],
+        mask_mean=float(images[..., 3].mean()))
+    if not np.isfinite(images).all() or not 0.01 < images[..., 3].mean() < 0.9:
+        raise AssertionError("protocol scene: bad ground truth")
+    return data
+
+
+def _seeded_params(scene, seed, device):
+    """Random parameters with alpha ~0 on the x < 0 half, so that a carve
+    deletes tets."""
+    rng = np.random.default_rng(seed)
+    feat = rng.normal(0, 1.0, (scene.n_points, 4)).astype(np.float32)
+    feat[scene.points_px3[:, 0] < 0.0, 0] = -12.0
+    mov = rng.normal(0, 0.01, (scene.n_points, 3)).astype(np.float32)
+    return {"feat": torch.tensor(feat, device=device),
+            "mov": torch.tensor(mov, device=device)}
+
+
+def render_parity(devices=("cpu", DEVICE)):
+    """The same small scene on the CPU (plain hit pass) and the card (the
+    kernel): a res-6 grid, make_synthetic_scene at 32x32 with 8 views,
+    optimize_stage in mov mode for 6 steps with a carve at step 2, then
+    fix mode for 6 steps.  Ground truth rtol 1e-5, histories rtol 1e-4,
+    parameters rtol 1e-4 with atol 3 lr (Adam moves a parameter whose
+    gradient is rounding noise by ~lr, in a direction that can differ by
+    device).  Then one full frame from the CPU run's final state, the same
+    face arrays on both: ids, z and counts equal, colours rtol 1e-5."""
+    from deftet_tpu_torch.render import frame as rf
+    from deftet_tpu_torch.render import optimize as ro
+    from deftet_tpu_torch.render.scene import TetScene
+    from deftet_tpu_torch.tetgrid import build_tet_grid
+
+    cfg = ro.RenderOptConfig(tet_res=6, pixel_sampling=0.5, delete_every=3,
+                             carve_dilation=0, seed=0)
+    runs = {}
+    for dev in devices:
+        data = ro.make_synthetic_scene(n_views=8, height=32, width=32,
+                                       device=dev)
+        scene = TetScene.from_grid(build_tet_grid(6), coef=cfg.coef,
+                                   device=dev)
+        n0 = scene.n_tets
+        params = _seeded_params(scene, 5, dev)
+        hist, infos = [], []
+        for gridmov in (True, False):
+            params, h, info = ro.optimize_stage(
+                scene, params, *data[:3], data[3][0], cfg, gridmov, 6,
+                log=None)
+            hist += h
+            infos.append(info)
+        runs[dev] = dict(data=data, scene=scene, params=params, hist=hist,
+                         infos=infos)
+    a, b = (runs[d] for d in devices)
+    if a["scene"].n_tets >= n0 or not np.array_equal(a["scene"].tets_tx4,
+                                                      b["scene"].tets_tx4):
+        raise AssertionError("render_parity: the carve did not run alike")
+    worst = {
+        "images": ratio(b["data"][0], a["data"][0], 1e-5, 1e-6),
+        "history": ratio(b["hist"], a["hist"], 1e-4, 0.0),
+        "feat": ratio(b["params"]["feat"].detach(),
+                      a["params"]["feat"].detach(), 1e-4, 3 * cfg.lr_feat),
+        "mov": ratio(b["params"]["mov"].detach(),
+                     a["params"]["mov"].detach(), 1e-4, 3 * cfg.lr_mov),
+    }
+    scene, params = a["scene"], a["params"]
+    h, w, focal = a["data"][2]
+    cam = ro.camera_from_blender(a["data"][1][0], focal, h, w)
+    with torch.no_grad():
+        face = scene.face_arrays(params, *cam)
+    bins = rf.build_frame_bins(ro.project_faces_np(scene, params, cam), h, w)
+    lin, pix = rf.frame_pixels(h, w, 16)
+    out = {}
+    for dev in devices:
+        fz, fi, ff = (x.to(dev) for x in face)
+        ids, counts = rf.frame_hits(fz, fi, bins, pix, 16, cfg.k)
+        k_used = rf.peel_depth(counts, cfg.k)
+        color, vis = rf.frame_replay(ids[:, :k_used], pix, fi, ff)
+        out[dev] = (ids.cpu(), counts.cpu(), color.cpu(), vis.cpu(), k_used)
+    (ia, ca, cola, visa, ka), (ib, cb, colb, visb, kb) = (out[d]
+                                                          for d in devices)
+    frame_equal = torch.equal(ia, ib) and torch.equal(ca, cb) and ka == kb
+    worst["frame_color"] = ratio(colb, cola, 1e-5, 1e-6)
+    worst["frame_vis"] = ratio(visb, visa, 1e-5, 1e-6)
+    say("render_parity", n_tets=[n0, scene.n_tets], infos=a["infos"],
+        history_cpu=a["hist"], history_cuda=b["hist"], worst_ratios=worst,
+        frame_ids_counts_equal=frame_equal, frame_k=ka,
+        frame_max_hits=int(ca.max()))
+    if not frame_equal or not all(v <= 1.0 for v in worst.values()):
+        raise AssertionError(f"render parity failed: {worst}, frame equal "
+                             f"{frame_equal}")
+
+
+def _median_steps(stage_log):
+    """Median seconds of a stage's steps that neither carve nor
+    recalibrate."""
+    plain = [s["seconds"] for s in stage_log if not s["recalibrated"]]
+    return statistics.median(plain) if plain else None
+
+
+def render_phase(data):
+    """The full-width run through run_pipeline, the counts set to 0 just
+    before it and read just after; then the numbers it is measured by."""
+    from deftet_tpu_torch.ops import _cuda
+    from deftet_tpu_torch.render import optimize as ro
+
+    cfg = ro.RenderOptConfig(**RENDER_CFG)
+    logs, step_log = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    with hit_recorder() as rec:
+        scene, params, records = ro.run_pipeline(
+            *data, cfg, log=logs.append, device=DEVICE, step_log=step_log)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = dict(_cuda.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    branch = [m for m in logs if m.startswith("[subdiv]")]
+    stages = [{
+        "sublevel": s["sublevel"], "stage": s["stage"],
+        "median_step_s": _median_steps(s["steps"]),
+        "steps": len(s["steps"]),
+        "recalibrated_steps": [x["step"] for x in s["steps"]
+                               if x["recalibrated"]],
+        "recalibrated_step_s": [x["seconds"] for x in s["steps"]
+                                if x["recalibrated"]],
+        "frame_s_per_view": s["psnr_seconds"] / s["psnr_views"],
+    } for s in step_log]
+    say("render", seconds=seconds, config=RENDER_CFG, records=records,
+        stages=stages, subdiv_branch=branch,
+        calibrations=[m for m in logs if m.startswith(("[bin]", "[peel]"))],
+        max_memory_allocated_bytes=peak, launches=launches,
+        launches_by_path=rec.counts, final_tets=scene.n_tets)
+    if launches["raster_hit"] == 0 or any(
+            launches[n] for n in ("stencil", "nearest", "tri_argmin")):
+        raise AssertionError(f"render path launches {launches}")
+    if len(records) != 4 or not all(np.isfinite(r["psnr"])
+                                    for r in records):
+        raise AssertionError(f"render records {records}")
+    return rec.inputs, rec.counts, scene, params
+
+
+def render_subdiv(data):
+    """The post-subdivision scale: the bundled carved snapshot (saved by
+    the JAX package), split 1->8, then RENDER_SUBDIV_STEPS mov-stage steps
+    against the protocol images and one timed full frame.  The snapshot
+    is not of the protocol scene, so its PSNR means nothing."""
+    from deftet_tpu_torch.ops import _cuda
+    from deftet_tpu_torch.render import optimize as ro
+    from deftet_tpu_torch.render.scene import TetScene
+
+    scene, params = TetScene.load_state(str(SUBDIV_SCENE), device=DEVICE)
+    n0 = scene.n_tets
+    params = scene.subdivide(params)
+    if scene.n_tets != 8 * n0:
+        raise AssertionError(f"subdivision gave {scene.n_tets} tets")
+    cfg = ro.RenderOptConfig()
+    images, poses, hwf, (i_train, _, i_test) = data
+    step_log = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    with hit_recorder() as rec:
+        params, hist, info = ro.optimize_stage(
+            scene, params, images, poses, hwf, i_train, cfg, gridmov=True,
+            steps=RENDER_SUBDIV_STEPS, log=None, step_log=step_log)
+        frame_s = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            color, vis = ro.render_full_image(scene, params,
+                                              poses[int(i_test[0])], hwf,
+                                              cfg)
+            frame_s.append(time.perf_counter() - t)
+    launches = dict(_cuda.launch_counts)
+    say("render_subdiv", tets=[n0, scene.n_tets],
+        faces=int(scene.faces_fx3.shape[0]), info=info,
+        median_step_s=_median_steps(step_log), history=hist,
+        frame_s=frame_s, launches=launches, launches_by_path=rec.counts,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        note="the snapshot is not of the protocol scene: no PSNR is "
+             "meaningful here")
+    if launches["raster_hit"] == 0 or not np.isfinite(hist).all() or \
+            not np.isfinite(color).all():
+        raise AssertionError("render_subdiv: no launch or non-finite output")
+    return rec.inputs, rec.counts
+
+
+def render_split(data, steps=5):
+    """One res-40 training step split into its parts, each ended by a
+    synchronisation (host clock): projection and candidate lists (up to
+    the kernel's launch), the hit kernel, replay and composite (with the
+    loss), backward, the Adam update; medians of ``steps`` steps after a
+    warm-up.  Then one full frame: the face arrays and host projection,
+    host build_frame_bins, the kernel, the replay."""
+    from deftet_tpu_torch.render import frame as rf
+    from deftet_tpu_torch.render import optimize as ro
+    from deftet_tpu_torch.render import raster
+    from deftet_tpu_torch.render.scene import TetScene
+    from deftet_tpu_torch.tetgrid import build_tet_grid
+    from deftet_tpu_torch.train.step import ClippedAdam
+
+    images, poses, (h, w, focal), (i_train, _, i_test) = data
+    cfg = ro.RenderOptConfig()
+    scene = TetScene.from_grid(build_tet_grid(cfg.tet_res), coef=cfg.coef,
+                               device=DEVICE)
+    params = scene.init_params()
+    cams = [ro.camera_from_blender(p, focal, h, w) for p in poses]
+    grid = ro.pixel_grid(h, w)
+    n_pix = int(cfg.pixel_sampling * h * w)
+    tile_w, n_tiles = ro._tile_mode(cfg, h, w, n_pix)
+    cal = dataclasses.replace(
+        cfg, bin_cand=ro.calibrate_bin_cand(scene, params, cams, i_train[:3],
+                                            grid, n_pix, cfg, hw=(h, w)),
+        k=ro.calibrate_peel_k(scene, params, cams, i_train[:2], grid, n_pix,
+                              cfg, hw=(h, w)))
+    opt_f = ClippedAdam([params["feat"]], cfg.lr_feat, None, b1=0.5,
+                        b2=0.999)
+    opt_m = ClippedAdam([params["mov"]], cfg.lr_mov, None, b1=0.5, b2=0.999)
+    step = ro.make_render_step(scene, ro.DEFAULT_WEIGHTS, True, cal, opt_f,
+                               opt_m, pixel_chunk=tile_w * tile_w or None,
+                               bin_sort=not tile_w)
+    layout = (rf.tile_pixel_layout(h, w, tile_w)[0] if tile_w else
+              np.arange(h * w)[:, None])
+    n_tiles = n_tiles or n_pix
+    gt_color, gt_mask = ro._white_composite(images)
+    rng = np.random.default_rng(11)
+    marks = {}
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks[name] = time.perf_counter()
+
+    def wrapped(fn, before, after):
+        def call(*a, **kw):
+            mark(before)
+            out = fn(*a, **kw)
+            mark(after)
+            return out
+        return call
+
+    orig_hit, orig_grad = raster._raster_hit_cuda, torch.autograd.grad
+    parts = {k: [] for k in ("projection_lists", "hit_kernel",
+                             "replay_composite", "backward", "adam")}
+    try:
+        raster._raster_hit_cuda = wrapped(orig_hit, "hit0", "hit1")
+        torch.autograd.grad = wrapped(orig_grad, "bwd0", "bwd1")
+        for i in range(1 + steps):
+            view = int(i_train[rng.integers(len(i_train))])
+            pick = layout[rng.choice(layout.shape[0], size=n_tiles,
+                                     replace=False)].reshape(-1)
+            args = (torch.as_tensor(grid[pick], device=DEVICE)[None],
+                    *cams[view],
+                    torch.as_tensor(gt_color[view].reshape(-1, 3)[pick],
+                                    device=DEVICE)[None],
+                    torch.as_tensor(gt_mask[view].reshape(-1, 1)[pick],
+                                    device=DEVICE)[None])
+            mark("start")
+            step(params, *args)
+            mark("end")
+            if i:
+                for name, (a, b) in (("projection_lists", ("start", "hit0")),
+                                     ("hit_kernel", ("hit0", "hit1")),
+                                     ("replay_composite", ("hit1", "bwd0")),
+                                     ("backward", ("bwd0", "bwd1")),
+                                     ("adam", ("bwd1", "end"))):
+                    parts[name].append(marks[b] - marks[a])
+    finally:
+        raster._raster_hit_cuda = orig_hit
+        torch.autograd.grad = orig_grad
+    step_parts = {k: statistics.median(v) for k, v in parts.items()}
+
+    cam = cams[int(i_test[0])]
+    frame = {}
+    for _ in range(2):  # the second one counts
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            fz, fi, ff = scene.face_arrays(params, *cam)
+        face_np = ro.project_faces_np(scene, params, cam)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bins = rf.build_frame_bins(face_np, h, w, cfg.frame_tile)
+        lin, pix = rf.frame_pixels(h, w, cfg.frame_tile)
+        t2 = time.perf_counter()
+        ids, counts = rf.frame_hits(fz, fi, bins, pix, cfg.frame_tile, cfg.k)
+        k_used = rf.peel_depth(counts, cfg.k)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        color, vis = rf.frame_replay(ids[:, :k_used], pix, fi, ff)
+        color.cpu()
+        t4 = time.perf_counter()
+        frame = {"face_arrays_and_host_projection": t1 - t,
+                 "host_build_frame_bins": t2 - t1,
+                 "hit_kernel": t3 - t2, "replay": t4 - t3,
+                 "total": t4 - t, "k_used": k_used,
+                 "max_hits": int(counts.max()),
+                 "candidates": int(bins[0][-1])}
+    say("render_split", config=f"res {cfg.tet_res}, {n_tiles} tiles of "
+        f"{tile_w}x{tile_w}, bin_cand {cal.bin_cand}, k {cal.k}",
+        step_s=step_parts, step_total_s=sum(step_parts.values()),
+        frame_s=frame)
+
+
+def hit_stats(args, counts):
+    """(pairs, tile candidates, hits, kept) of one raster_hit call."""
+    pix, ranges, face_z, face_img, cand, offsets, tile_pixels, k = args
+    t = offsets.shape[0] - 1
+    lengths = (offsets[1:] - offsets[:-1]).long()
+    tile_of = torch.repeat_interleave(torch.arange(t, device=cand.device),
+                                      lengths)
+    valid = torch.bincount(tile_of[cand[offsets[0]:offsets[0]
+                                        + tile_of.shape[0]] >= 0],
+                           minlength=t)
+    pixels = torch.full((t,), tile_pixels, dtype=torch.int64,
+                        device=cand.device)
+    pixels[-1] = pix.shape[0] - (t - 1) * tile_pixels
+    return (int((valid * pixels).sum()), int(valid.sum()),
+            int(counts.sum()), int(counts.clamp(max=k).sum()))
+
+
+def check_raster_hit(args, label, reps=10):
+    """raster_hit on one call's inputs of a path against its plain version
+    on the card: ids, z and counts equal (torch.equal).  Timed beside its
+    bound: the pair tests' flops at the float32 rate without FMA, or the
+    bytes, the larger.  The bytes are what the call needs: the pixels and
+    ranges, the valid list entries and the distinct faces they name, read
+    once, and the (P, k) rows and counts written once."""
+    from deftet_tpu_torch.render import raster
+
+    ids, z, counts = raster.raster_hit(*args)
+    ids_p, z_p, counts_p = raster.raster_hit_plain(*args)
+    equal = (torch.equal(ids, ids_p) and torch.equal(z, z_p)
+             and torch.equal(counts, counts_p))
+    if not equal:
+        raise AssertionError(
+            f"raster_hit {label}: {int((ids != ids_p).sum())} ids, "
+            f"{int((counts != counts_p).sum())} counts differ")
+    ms = cuda_ms(lambda: raster.raster_hit(*args), reps)
+    plain_ms = cuda_ms(lambda: raster.raster_hit_plain(*args), 1)
+    pix, ranges, face_z, face_img, cand, offsets, tile_pixels, k = args
+    pairs, tile_faces, hits, kept = hit_stats(args, counts)
+    p = pix.shape[0]
+    listed = cand[int(offsets[0]):int(offsets[-1])]
+    n_faces = int(torch.unique(listed[listed >= 0]).numel())
+    n_bytes = (16 * p + 36 * n_faces + 4 * tile_faces
+               + 8 * offsets.numel() + 8 * p * k + 4 * p)
+    n_flops = (HIT_PAIR_FLOPS * pairs + HIT_Z_FLOPS * hits
+               + HIT_FACE_FLOPS * tile_faces)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_flops / PEAK_F32_NO_FMA
+    bms = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    shape = (f"{p} pixels, {offsets.numel() - 1} tiles of {tile_pixels}, "
+             f"{face_z.shape[0]} faces, {cand.numel()} list entries, k {k}")
+    say(label, shape=shape, pairs=pairs, hits=hits, kept=kept,
+        insertion_bound=hits * k, max_hits=int(counts.max()),
+        valid_entries=tile_faces, distinct_faces=n_faces, bytes=n_bytes,
+        flops=n_flops, ms=ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        fma_peak_bound_ms=n_flops / PEAK_F32 * 1e3, share=bms / ms,
+        equal=equal)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, max_abs_err=0.0, shape=shape, pairs=pairs,
+                hits=hits, insertion_work=hits * k)
+
+
+def check_raster_edge_cases(device=DEVICE):
+    """raster_hit where the main path does not reach, each case equal to
+    the plain version (ids, z, counts) and to what it must give:
+
+    * 40 stacked faces over every pixel, k 8: the 8 nearest kept, counts 40;
+    * the same stack at k 0 (a calibration's count-only call, 300 pixels
+      in tiles of 128): no rows, counts 40;
+    * 5 copies of one face (equal z): lower ids first;
+    * -1 slots in a list, and an empty list (fill values, count 0);
+    * zero-area faces (a point, a segment): the guarded division;
+    * pixels exactly on the edge two faces share;
+    * per-pixel z ranges that cut the stack;
+    * P not a multiple of the tile (1,000 pixels, tiles of 256)."""
+    from deftet_tpu_torch.render import raster
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+
+    def uniform(*shape, lo=-1.0, hi=1.0):
+        return (lo + (hi - lo) * torch.rand(*shape, generator=gen)).to(device)
+
+    big = torch.tensor([[-1.0, -1.0], [3.0, -1.0], [-1.0, 3.0]],
+                       device=device)
+    cases = {}
+    # stacked: 40 big faces at distinct z, 300 random pixels in them
+    z = -torch.arange(1, 41, dtype=torch.float32, device=device)
+    z = z[torch.randperm(40, generator=gen).to(device)]
+    cases["truncation"] = (uniform(300, 2, lo=-0.9, hi=0.9),
+                           z[:, None].expand(40, 3), big.expand(40, 3, 2),
+                           None, 128, 8)
+    cases["count_only"] = cases["truncation"][:5] + (0,)
+    # copies of one face at equal z, list ascending
+    cases["duplicates"] = (uniform(64, 2, lo=-0.9, hi=0.9),
+                           torch.full((5, 3), -2.0, device=device),
+                           big.expand(5, 3, 2), None, 64, 4)
+    # -1 slots and an empty list: tiles [0..3 with -1s], [empty], [2]
+    cases["slots_empty"] = (uniform(30, 2, lo=-0.9, hi=0.9),
+                            -uniform(4, 3, lo=1.0, hi=5.0),
+                            big.expand(4, 3, 2),
+                            (torch.tensor([0, -1, 1, -1, 3, -1, 2]),
+                             torch.tensor([0, 6, 6, 7])), 10, 4)
+    # zero-area faces among normal ones
+    deg = torch.stack([big, big[[0, 0, 0]], big[[0, 1, 1]],
+                       torch.tensor([[0.0, 0.0], [0.0, 0.0], [0.0, 0.0]],
+                                    device=device)])
+    cases["zero_area"] = (torch.cat([uniform(60, 2),
+                                     torch.zeros(4, 2, device=device)]),
+                          -uniform(4, 3, lo=1.0, hi=5.0), deg, None, 64, 4)
+    # two faces sharing the edge x = 0, pixels exactly on it
+    shared = torch.tensor([[[0.0, -1.0], [0.0, 1.0], [-1.0, 0.0]],
+                           [[0.0, -1.0], [1.0, 0.0], [0.0, 1.0]]],
+                          device=device)
+    on_edge = torch.stack([torch.zeros(33, device=device),
+                           torch.linspace(-1, 1, 33, device=device)], 1)
+    cases["shared_edge"] = (on_edge, torch.tensor([[-2.0] * 3, [-3.0] * 3],
+                                                  device=device),
+                            shared, None, 33, 4)
+    # random faces, P = 1000 not a multiple of 256, random z ranges
+    n = 500
+    centre = uniform(n, 1, 2)
+    tri = centre + 0.3 * uniform(n, 3, 2)
+    pix = uniform(1000, 2)
+    lo = -uniform(1000, 1, lo=1.5, hi=6.0)
+    cases["ragged_ranges"] = (pix, -uniform(n, 3, lo=1.0, hi=5.0), tri,
+                              None, 256, 16, torch.cat([lo, lo + 2.0], 1))
+    # what each case must give besides equality with the plain version
+    nearest8 = torch.argsort(z, descending=True)[:8].to(torch.int32)
+    expect = {
+        "truncation": lambda ids, zs, c: bool((c == 40).all())
+        and torch.equal(ids, nearest8.expand_as(ids)),
+        "count_only": lambda ids, zs, c: bool((c == 40).all())
+        and ids.shape == zs.shape == (300, 0),
+        "duplicates": lambda ids, zs, c: bool((c == 5).all()) and torch.equal(
+            ids, torch.arange(4, dtype=torch.int32,
+                              device=device).expand_as(ids)),
+        "slots_empty": lambda ids, zs, c: bool((c[10:20] == 0).all())
+        and bool((ids[10:20] == -1).all()) and bool((c[:10] == 3).all()),
+        "shared_edge": lambda ids, zs, c: bool((c[1:-1] == 2).all()),
+    }
+    report = {}
+    for name, case in cases.items():
+        pix, fz, fi, lists, tile, k = case[:6]
+        ranges = case[6] if len(case) > 6 else torch.tensor(
+            [[-1000.0, 0.0]], device=device).expand(pix.shape[0], 2)
+        t = -(-pix.shape[0] // tile)
+        if lists is None:  # each tile: every face, ascending
+            f = fz.shape[0]
+            cand = torch.arange(f, dtype=torch.int32,
+                                device=device).repeat(t)
+            offsets = torch.arange(t + 1, device=device) * f
+        else:
+            cand, offsets = (x.to(device) for x in lists)
+        args = (pix.contiguous(), ranges.contiguous(), fz.contiguous(),
+                fi.contiguous(), cand.to(torch.int32), offsets, tile, k)
+        out = raster.raster_hit(*args)
+        ref = raster.raster_hit_plain(*args)
+        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            raise AssertionError(f"raster_hit edge case {name} differs")
+        if name in expect and not expect[name](*out):
+            raise AssertionError(f"raster_hit edge case {name}: wrong "
+                                 f"result {out}")
+        report[name] = {"pixels": pix.shape[0], "k": k,
+                        "max_hits": int(out[2].max()),
+                        "kept": int((out[0] >= 0).sum())}
+    say("kernel_raster_hit_edge_cases", cases=report)
+
+
+RENDER_CLI = ["render", "--synthetic", "--image_size", "64", "--n_views",
+              "8", "--tetres", "8", "--sublevel", "1", "--optmovnum", "6",
+              "--optfixnum", "6", "--deletenum", "3", "--savedir",
+              "build/smoke_render"]
+
+
+def render_cli():
+    """``python -m deftet_tpu_torch.cli render`` on the card in a
+    subprocess: exits 0 and writes records.json, surface.obj and the
+    turntable (an .npz of frames where no video writer is installed)."""
+    import shutil
+
+    work = ROOT / "build" / "smoke_render"
+    shutil.rmtree(work, ignore_errors=True)
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "deftet_tpu_torch.cli",
+                          *RENDER_CLI], cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode:
+        raise RuntimeError(f"cli render exited {out.returncode}:\n"
+                           f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    outdir = work / "scene"
+    names = sorted(p.name for p in outdir.iterdir())
+    records = json.loads((outdir / "records.json").read_text())
+    turntable = [n for n in names if n.startswith("rgb-")]
+    say("render_cli", seconds=time.perf_counter() - t, files=names,
+        records=records)
+    if "surface.obj" not in names or not turntable or not np.isfinite(
+            records["final_psnr"]):
+        raise AssertionError(f"cli render wrote {names}")
+
+
 def kernel_entry(name, res, launches, path):
     source, replaces = KERNEL_INFO[name]
     entry = {
@@ -1377,7 +1942,8 @@ def kernel_entry(name, res, launches, path):
         "bound_by": res["bound_by"], "library_ms": res["library_ms"],
         "shape": res["shape"], "path": path,
     }
-    for extra in ("step_ms", "no_fma_ceiling_ms", "launches_per_run"):
+    for extra in ("step_ms", "no_fma_ceiling_ms", "launches_per_run",
+                  "pairs", "hits", "insertion_work"):
         if extra in res:
             entry[extra] = res[extra]
     return entry
@@ -1423,6 +1989,24 @@ def main() -> int:
                           paper_per_step)
     timed("edge_cases", check_edge_cases)
     timed("cli", cli_phase)
+    timed("render_parity", render_parity)
+    data = timed("render_scene", protocol_scene)
+    r_inputs, r_counts, _, _ = timed("render", render_phase, data)
+    torch.cuda.empty_cache()
+    s_inputs, s_counts = timed("render_subdiv", render_subdiv, data)
+    timed("render_split", render_split, data)
+    raster_rows = timed("kernel_raster_hit", lambda: {
+        "train": check_raster_hit(r_inputs["train"],
+                                  "kernel_raster_hit_train"),
+        "frame": check_raster_hit(r_inputs["frame"],
+                                  "kernel_raster_hit_frame"),
+        "count": check_raster_hit(r_inputs["count"],
+                                  "kernel_raster_hit_count"),
+        "subdiv": check_raster_hit(s_inputs["frame"],
+                                   "kernel_raster_hit_subdiv"),
+    })
+    timed("raster_edge_cases", check_raster_edge_cases)
+    timed("render_cli", render_cli)
 
     kernels = []
     for name, res in results.items():
@@ -1444,6 +2028,17 @@ def main() -> int:
         kernels.append(kernel_entry("tri_argmin", res,
                                     ev["launches"]["tri_argmin"],
                                     f"eval: Hausdorff {side}"))
+    for path, res, n in (
+            ("render: training step, res 40, 25 tiles of 16x16",
+             raster_rows["train"], r_counts["train"]),
+            ("render: full frame 400x400, k 300", raster_rows["frame"],
+             r_counts["frame"]),
+            ("render: calibration count (k 0), one unbinned tile against "
+             "every face", raster_rows["count"],
+             r_counts["count"]),
+            ("render_subdiv: full frame of the subdivided snapshot",
+             raster_rows["subdiv"], s_counts["frame"])):
+        kernels.append(kernel_entry("raster_hit", res, n, path))
     say("done", seconds=time.perf_counter() - t0, phase_seconds=phase_s,
         card=smi)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,8 +2,9 @@
 
 Same system as ``deftet_tpu`` (deformable tetrahedral mesh reconstruction,
 DefTet), written in PyTorch; the three Pallas TPU kernels of the JAX
-package are hand-written CUDA C++ kernels for ``sm_90a`` here
-(``csrc/``), each with a plain PyTorch version beside it.
+package, and the rasterizer's hit pass, are hand-written CUDA C++ kernels
+for ``sm_90a`` here (``csrc/``), each with a plain PyTorch version beside
+it.
 
 Sub-packages mirror the JAX package:
 
@@ -18,9 +19,12 @@ Sub-packages mirror the JAX package:
 * ``evals``   — the metrics and the full-inference evaluation.
 * ``train``   — statics, ``forward_losses``, the optimizer, the train and
   validation steps, checkpoints and ``Engine``.
+* ``render``  — the 2D-supervision stack: camera, the depth-peeled
+  rasterizer (hit kernel ``raster_hit``), compositing, full frames, the
+  optimizable tet scene and the staged carve/subdivide optimizer.
 * ``remat``   — rematerialization that keeps named no-grad results.
 * ``utils``   — OBJ IO and named timers.
-* ``cli``     — ``python -m deftet_tpu_torch.cli train|eval``.
+* ``cli``     — ``python -m deftet_tpu_torch.cli train|eval|render``.
 * ``convert`` — flax ``{"params", "batch_stats"}`` to a torch state dict.
 
 Importing the package compiles nothing and does not touch CUDA; kernels

@@ -1,16 +1,19 @@
-"""Command-line entry points (torch port of deftet_tpu/cli.py's ``train``
-and ``eval``):
+"""Command-line entry points (torch port of deftet_tpu/cli.py's ``train``,
+``eval`` and ``render``):
 
     python -m deftet_tpu_torch.cli train [--device cuda|cpu] [config flags]
     python -m deftet_tpu_torch.cli eval --experiment_path DIR [--device ...]
+    python -m deftet_tpu_torch.cli render --synthetic|--datadir DIR [...]
 
 ``train`` builds (or reuses) the procedural dataset, creates an
 experiment, and runs the fit loop with best-IoU checkpoints.  ``eval``
 restores an experiment's checkpoint and writes the validation losses and
 the inference metrics to ``result_update*.json`` and
-``result_update.txt``.  ``--device`` defaults to ``cuda`` and never falls
-back to the CPU.  Not ported: ``preprocess``, ``render``, ``--mesh_dir``
-and ``--use_disn``.
+``result_update.txt``.  ``render`` runs the 2D-supervision optimizer on a
+NeRF-synthetic scene or a procedural one and writes ``records.json``,
+``surface.obj`` and a turntable video.  ``--device`` defaults to ``cuda``
+and never falls back to the CPU.  Not ported: ``preprocess``,
+``--mesh_dir`` and ``--use_disn``.
 """
 
 from __future__ import annotations
@@ -229,15 +232,115 @@ def eval_main(argv=None) -> int:
     return 0
 
 
-COMMANDS = {"train": train_main, "eval": eval_main}
+def render_main(argv=None) -> int:
+    """2D-supervision optimization (the reference's diff_render app):
+    per sublevel a {mov, fix} stage pair, then subdivision; data from a
+    NeRF-synthetic scene directory (--datadir) or the procedural scene
+    (--synthetic).  Flag names follow the reference's expconfig.py."""
+    from .render.optimize import (
+        DEFAULT_WEIGHTS,
+        RenderOptConfig,
+        evaluate_psnr,
+        export_turntable,
+        load_blender,
+        make_synthetic_scene,
+        run_pipeline,
+    )
+
+    parser = argparse.ArgumentParser(prog="deftet_tpu_torch.cli render")
+    parser.add_argument("--expname", default="scene")
+    parser.add_argument("--savedir", default="./render_out")
+    parser.add_argument("--datadir", default=None,
+                        help="NeRF-synthetic scene dir (transforms_*.json)")
+    parser.add_argument("--synthetic", action="store_true",
+                        help="use the procedural GT scene instead of data")
+    parser.add_argument("--n_views", type=int, default=16)
+    parser.add_argument("--image_size", type=int, default=100)
+    hr = parser.add_mutually_exclusive_group()
+    hr.add_argument("--half_res", dest="half_res", action="store_true",
+                    default=True)
+    hr.add_argument("--no_half_res", dest="half_res", action="store_false")
+    parser.add_argument("--tetres", type=int, default=40)
+    parser.add_argument("--tet_file", default=None,
+                        help="quartet-format .tet grid file (overrides "
+                        "--tetres)")
+    parser.add_argument("--tetcoef", type=float, default=2.5)
+    parser.add_argument("--sublevel", type=int, default=2)
+    parser.add_argument("--deletenum", type=int, default=1000)
+    parser.add_argument("--deletethres", type=float, default=1e-3)
+    parser.add_argument("--optfixnum", type=int, default=3000)
+    parser.add_argument("--optmovnum", type=int, default=2000)
+    parser.add_argument("--lrfix", type=float, default=5e-2)
+    parser.add_argument("--lrmov", type=float, default=5e-4)
+    parser.add_argument("--pixelsampling", type=float, default=0.04)
+    parser.add_argument("--peel_k", type=int, default=300)
+    parser.add_argument("--tet_budget", type=int, default=1_000_000,
+                        help="post-subdivision tet budget; 0 = unlimited "
+                        "(split every alive tet)")
+    parser.add_argument("--seed", type=int, default=0)
+    for name, default in (
+        ("weights_im_loss", 1.0), ("weights_mask_loss", 2.0),
+        ("weights_mask_reg", 1e-2), ("weights_occ_lap", 0.0),
+        ("weights_color_reg", 0.0), ("weights_point_mov", 1e-2),
+        ("weights_tetvariance", 0.0),
+    ):
+        parser.add_argument(f"--{name}", type=float, default=default)
+    _add_device_arg(parser)
+    args = parser.parse_args(argv)
+    device = _device(parser, args.device)
+
+    if args.datadir:
+        images, poses, hwf, i_split = load_blender(args.datadir,
+                                                   half_res=args.half_res)
+    else:
+        images, poses, hwf, i_split = make_synthetic_scene(
+            n_views=args.n_views, height=args.image_size,
+            width=args.image_size, seed=args.seed, coef=args.tetcoef,
+            device=device)
+    lap = (args.weights_color_reg,) * 3 + (args.weights_occ_lap,)
+    weights = dict(DEFAULT_WEIGHTS)
+    weights.update(
+        weights_im_loss=args.weights_im_loss,
+        weights_mask_loss=args.weights_mask_loss,
+        weights_mask_reg=args.weights_mask_reg,
+        weights_point_mov=args.weights_point_mov,
+        weights_tetvariance=args.weights_tetvariance,
+        weights_vector=lap,
+        weights_vector_with_gridmov=lap + (args.weights_point_mov,) * 3,
+    )
+    cfg = RenderOptConfig(
+        tet_res=args.tetres, tet_file=args.tet_file, coef=args.tetcoef,
+        sublevels=args.sublevel, steps_fix=args.optfixnum,
+        steps_mov=args.optmovnum, pixel_sampling=args.pixelsampling,
+        lr_feat=args.lrfix, lr_mov=args.lrmov, delete_every=args.deletenum,
+        delete_threshold=args.deletethres, k=args.peel_k,
+        tet_budget=args.tet_budget, seed=args.seed,
+    )
+    outdir = os.path.join(args.savedir, args.expname)
+    os.makedirs(outdir, exist_ok=True)
+    scene, params, records = run_pipeline(images, poses, hwf, i_split, cfg,
+                                          weights=weights, device=device)
+    mse, psnr = evaluate_psnr(scene, params, images, poses, hwf, i_split[2],
+                              cfg)
+    with open(os.path.join(outdir, "records.json"), "w") as f:
+        json.dump({"stages": records, "final_mse": mse,
+                   "final_psnr": psnr}, f, indent=2)
+    scene.save_surface_obj(params, os.path.join(outdir, "surface.obj"))
+    export_turntable(scene, params, hwf, cfg, os.path.join(
+        outdir, f"rgb-mse{mse:.3f}-psnr{psnr:.3f}.gif"))
+    print(json.dumps({"mse": mse, "psnr": psnr, "outdir": outdir}))
+    return 0
+
+
+COMMANDS = {"train": train_main, "eval": eval_main, "render": render_main}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     cmd = argv[0] if argv else "train"
     if cmd not in COMMANDS:
-        print(f"deftet_tpu_torch.cli: unknown or unported command {cmd!r} "
-              f"(ported: {', '.join(COMMANDS)})", file=sys.stderr)
+        print(f"deftet_tpu_torch.cli: unknown command {cmd!r} "
+              f"(commands: {', '.join(COMMANDS)})", file=sys.stderr)
         return 2
     return COMMANDS[cmd](argv[1:])
 

@@ -1,4 +1,5 @@
-"""Convert the JAX package's flax variables into the port's state dict.
+"""Convert the JAX package's flax variables into the port's state dict,
+and its 2D-supervision parameters into tensors.
 
 Input: ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
 arrays (``jax.device_get`` of a flax variables tree).  The port's module
@@ -84,3 +85,13 @@ def flax_to_state_dict(variables: Mapping, model: torch.nn.Module):
 def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
     """Copy converted flax variables into ``model`` (strict)."""
     model.load_state_dict(flax_to_state_dict(variables, model), strict=True)
+
+
+def render_params_from_numpy(tree: Mapping, device="cpu"):
+    """The 2D-supervision parameters ``{"mov", "feat"}`` (the JAX render
+    pipeline's pytree, as numpy arrays) as float32 tensors on ``device``."""
+    missing = {"mov", "feat"} - set(tree)
+    if missing:
+        raise ValueError(f"render parameters lack {sorted(missing)}")
+    return {k: torch.as_tensor(np.array(tree[k], dtype=np.float32),
+                               device=device) for k in ("mov", "feat")}

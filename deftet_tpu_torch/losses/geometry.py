@@ -1,5 +1,6 @@
-"""Per-tet regularizers in structure-of-arrays form (torch port of the
-SoA part of deftet_tpu/losses/geometry.py).
+"""Per-tet regularizers (torch port of deftet_tpu/losses/geometry.py):
+the structure-of-arrays forms of the 3D-supervised step, and the
+array-of-structures volume variance of the 2D-supervised grid motion.
 
 ``soa[k][c]`` is a (B, T) tensor holding coordinate c of tet corner k.
 """
@@ -63,6 +64,24 @@ def tet_volumes_soa(soa):
 
 def volume_variance_soa(soa, pow: int = 4) -> torch.Tensor:
     v = tet_volumes_soa(soa)
+    dv = v - v.mean(dim=-1, keepdim=True)
+    if pow == 1:
+        return dv.abs().sum(dim=-1)
+    return (dv**pow).sum(dim=-1)
+
+
+def tet_volumes(tet_bxtx4x3: torch.Tensor) -> torch.Tensor:
+    """Signed volume per tet of (B, T, 4, 3) corners, V = -det([A-D, B-D,
+    C-D]) / 6."""
+    d = tet_bxtx4x3[..., 3, :]
+    rows = [[tet_bxtx4x3[..., k, c] - d[..., c] for c in range(3)]
+            for k in range(3)]
+    return -_det3_soa(rows) / 6.0
+
+
+def volume_variance(tet_bxtx4x3: torch.Tensor, pow: int = 4) -> torch.Tensor:
+    """Sum over tets of (V - mean V)^pow per batch element."""
+    v = tet_volumes(tet_bxtx4x3)
     dv = v - v.mean(dim=-1, keepdim=True)
     if pow == 1:
         return dv.abs().sum(dim=-1)

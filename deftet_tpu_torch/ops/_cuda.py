@@ -29,14 +29,16 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
 
-# name -> (source, extra nvcc flags).  The distance kernels compile with
-# -fmad=false: every product and sum is rounded separately, in the order
-# the plain PyTorch versions evaluate them, so argmin indices agree with
-# the plain versions bit for bit instead of flipping on FMA near-ties.
+# name -> (source, extra nvcc flags).  The distance and hit-test kernels
+# compile with -fmad=false: every product and sum is rounded separately,
+# in the order the plain PyTorch versions evaluate them, so argmin
+# indices and hit lists agree with the plain versions bit for bit instead
+# of flipping on FMA near-ties.
 KERNELS = {
     "stencil": ("stencil.cu", []),
     "nearest": ("nearest.cu", ["-fmad=false"]),
     "tri_argmin": ("tri_argmin.cu", ["-fmad=false"]),
+    "raster_hit": ("raster_hit.cu", ["-fmad=false"]),
 }
 
 _P = ctypes.c_void_p
@@ -50,6 +52,8 @@ _SIGNATURES = {  # name -> {C function: argument types}; all return an int
                 "deftet_nearest_plan": [_I, _I, _I, _P]},
     "tri_argmin": {"deftet_tri_argmin":
                    [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]},
+    "raster_hit": {"deftet_raster_hit":
+                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _P]},
 }
 
 _lock = threading.Lock()

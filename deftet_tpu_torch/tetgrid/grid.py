@@ -1,5 +1,5 @@
-"""Kuhn tetrahedral grid over [0, 1]^3 (numpy; copy of
-deftet_tpu/tetgrid/grid.py without the .tet file IO).
+"""Kuhn tetrahedral grid over [0, 1]^3 and quartet ``.tet`` file IO
+(numpy; copy of deftet_tpu/tetgrid/grid.py).
 
 Each lattice cube splits into 6 tetrahedra around its main diagonal;
 tets are type-major (``tet = type * r^3 + cell``) and oriented so the
@@ -109,3 +109,32 @@ def build_tet_grid(resolution: int) -> TetGrid:
         interior_mask=mask,
         resolution=r,
     )
+
+
+def read_tet_file(path: str, snap_spacing: float | None = None) -> TetGrid:
+    """Read a quartet-format ``.tet`` file: a header ``tet <n_vert>
+    <n_tet>``, then vertex lines (3 floats) and tet lines (4 ints).  Tets
+    are re-oriented and near-wall coordinates snapped as for the lattice;
+    the snap spacing defaults to the least positive x-coordinate gap."""
+    with open(path, "r") as f:
+        header = f.readline().strip().split()
+        n_vert, n_tet = int(header[1]), int(header[2])
+        vertices = np.loadtxt(f, max_rows=n_vert, dtype=np.float64)
+        tets = np.loadtxt(f, max_rows=n_tet, dtype=np.int64)
+    vertices = vertices.reshape(n_vert, 3)
+    tets = orient_tets(vertices, tets.reshape(n_tet, 4))
+    if snap_spacing is None:
+        gaps = np.diff(np.unique(vertices[:, 0]))
+        snap_spacing = float(gaps[gaps > 1e-9].min()) if gaps.size else 1.0
+    mask = boundary_vertex_mask(vertices, snap_spacing)
+    return TetGrid(vertices=vertices, tets=tets.astype(np.int32),
+                   interior_mask=mask)
+
+
+def save_tet_file(grid: TetGrid, path: str) -> None:
+    with open(path, "w") as f:
+        f.write("tet %d %d\n" % (grid.n_vertices, grid.n_tets))
+        for v in grid.vertices:
+            f.write("%f %f %f\n" % (v[0], v[1], v[2]))
+        for t in grid.tets:
+            f.write("%d %d %d %d\n" % (t[0], t[1], t[2], t[3]))

@@ -1,6 +1,7 @@
 """Host-side (numpy) topology builders: the parts of
-deftet_tpu/tetgrid/topology.py the lattice train step uses (face
-enumeration for the class tables, and vertex degrees)."""
+deftet_tpu/tetgrid/topology.py the port uses (face enumeration for the
+class tables and the render faces, vertex degrees and padded adjacency,
+tet neighbours, hull-face owners)."""
 
 from __future__ import annotations
 
@@ -56,3 +57,52 @@ def vertex_degree(tets: np.ndarray, n_point: int) -> np.ndarray:
     e = np.concatenate([e, e[:, ::-1]], axis=0)
     uniq = np.unique(e[:, 0] * n_point + e[:, 1])
     return np.bincount(uniq // n_point, minlength=n_point).astype(np.int32)
+
+
+def hull_face_owners(
+    tets: np.ndarray, hull_fx3: np.ndarray, n_point: int
+) -> np.ndarray:
+    """Owning tet of each single-owner (hull) face, by matching the face's
+    sorted vertex key against every tet's local faces."""
+    tets = np.asarray(tets, dtype=np.int64)
+    tris = tets[:, FACE_IDX].reshape(-1, 3)
+    n = np.int64(n_point)
+
+    def encode(f):
+        k = np.sort(np.asarray(f, dtype=np.int64), axis=1)
+        return (k[:, 0] * n + k[:, 1]) * n + k[:, 2]
+
+    keys = encode(tris)
+    order = np.argsort(keys, kind="stable")
+    pos = np.searchsorted(keys[order], encode(hull_fx3))
+    return (order[pos] // 4).astype(np.int32)
+
+
+def build_vertex_adjacency(tets: np.ndarray, n_point: int):
+    """Vertex adjacency as padded neighbour lists: (idx (N, M) int32,
+    mask (N, M) float32, deg (N,) int32), so that the row-normalized
+    ``adj @ x`` is ``(x[idx] * mask[..., None]).sum(-2) / deg``."""
+    tets = np.asarray(tets, dtype=np.int64)
+    e = tets[:, TET_EDGES].reshape(-1, 2)
+    e = np.concatenate([e, e[:, ::-1]], axis=0)
+    uniq = np.unique(e[:, 0] * n_point + e[:, 1])
+    src = (uniq // n_point).astype(np.int64)
+    dst = (uniq % n_point).astype(np.int64)
+    deg = np.bincount(src, minlength=n_point)
+    max_deg = int(deg.max()) if deg.size else 0
+    idx = np.zeros((n_point, max_deg), dtype=np.int32)
+    mask = np.zeros((n_point, max_deg), dtype=np.float32)
+    pos = np.arange(src.shape[0]) - _group_starts(deg)[src]
+    idx[src, pos] = dst
+    mask[src, pos] = 1.0
+    return idx, mask, deg.astype(np.int32)
+
+
+def build_tet_neighbors(
+    face_tet_fx2: np.ndarray, face_slot_fx2: np.ndarray, n_tets: int
+) -> np.ndarray:
+    """(T, 4) neighbour tet index per local face slot, -1 at the hull."""
+    nbr = np.full((n_tets, 4), -1, dtype=np.int32)
+    nbr[face_tet_fx2[:, 0], face_slot_fx2[:, 0]] = face_tet_fx2[:, 1]
+    nbr[face_tet_fx2[:, 1], face_slot_fx2[:, 1]] = face_tet_fx2[:, 0]
+    return nbr

@@ -54,6 +54,9 @@ def test_port_imports_without_jax_or_cuda():
 NEW_MODULES = ("cli", "remat", "utils", "utils.objio", "utils.timing",
                "data.pipeline", "evals.harness", "evals.metrics",
                "ops.check_sign", "ops.point_tet", "train.checkpoint")
+RENDER_MODULES = ("render", "render.camera", "render.raster",
+                  "render.composite", "render.frame", "render.scene",
+                  "render.optimize", "tetgrid.subdivide")
 
 PROBE_NEW = r"""
 import importlib, json, sys
@@ -61,6 +64,7 @@ names = sys.argv[1:]
 for name in names:
     importlib.import_module("deftet_tpu_torch." + name)
 import torch
+from deftet_tpu_torch.ops import _cuda
 print(json.dumps({
     "jax": sorted(m for m in sys.modules
                   if m == "jax" or m.startswith(("jax.", "jaxlib", "flax",
@@ -68,16 +72,26 @@ print(json.dumps({
     "deftet_tpu": sorted(m for m in sys.modules
                          if m == "deftet_tpu" or m.startswith("deftet_tpu.")),
     "cuda_initialized": torch.cuda.is_initialized(),
+    "libraries_loaded": len(_cuda._libs),
 }))
 """
 
 
-def test_train_eval_and_cli_modules_import_without_jax():
+def _probe(modules):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
-    out = subprocess.run([sys.executable, "-c", PROBE_NEW, *NEW_MODULES],
+    out = subprocess.run([sys.executable, "-c", PROBE_NEW, *modules],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert report == {"jax": [], "deftet_tpu": [], "cuda_initialized": False}
+    assert report == {"jax": [], "deftet_tpu": [], "cuda_initialized": False,
+                      "libraries_loaded": 0}
+
+
+def test_train_eval_and_cli_modules_import_without_jax():
+    _probe(NEW_MODULES)
+
+
+def test_render_modules_import_without_jax_or_a_build():
+    _probe(RENDER_MODULES)
