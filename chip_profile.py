@@ -1,9 +1,11 @@
 """Where the time of the full-width train step goes on one NVIDIA GPU.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [main|lap|disn]
 
 Builds bench.py's res-50 / batch-4 configuration through the port's
-``Engine`` (as ``chip_smoke.py`` does), runs two warm-up steps, then
+``Engine`` (as ``chip_smoke.py`` does; ``lap`` adds the lap layer,
+``disn`` swaps in the DISN image branch at its default widths and feeds
+it chip_smoke's rendered images), runs two warm-up steps, then
 traces three steps with ``torch.profiler`` and prints, after the card's
 name and power limit, one JSON line:
 the wall time per step, the device busy share (sum of kernel time over
@@ -11,6 +13,8 @@ wall time), the device time and share of each hand-written kernel (K1,
 K2, K3) with its CUDA launches beside its wrapper calls per step (which
 must agree), and the device time by kernel name, largest first.  The full table goes to
 ``chiprun_out/profile_table.txt`` when that directory exists.
+With ``lap`` or ``disn`` the table's file name ends in ``_lap`` or
+``_disn``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from pathlib import Path
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import chip_smoke
 from chip_smoke import bench_batch, bench_config, header
 
 STEPS = 3
@@ -39,10 +44,20 @@ def main() -> int:
     from deftet_tpu_torch.ops import _cuda
     from deftet_tpu_torch.train import Engine
 
+    which = sys.argv[1] if len(sys.argv) > 1 else "main"
+    configs = {"main": bench_config, "lap": chip_smoke.lap_config,
+               "disn": chip_smoke.disn_config}
+    if which not in configs:
+        print(f"chip_profile: unknown configuration {which!r} "
+              f"({', '.join(configs)})", file=sys.stderr)
+        return 2
     header()
-    config = bench_config()
+    config = configs[which]()
     engine = Engine(config, device="cuda")
-    batch = engine._prep_batch(bench_batch(config))
+    batch = bench_batch(config)
+    if config.use_disn:
+        batch = chip_smoke.image_batch(batch, range(config.batch_size))
+    batch = engine._prep_batch(batch)
     for _ in range(2):
         engine.train_step(batch)
     torch.cuda.synchronize()
@@ -82,10 +97,13 @@ def main() -> int:
     step_ms = wall * 1e3 / STEPS
     out = Path("chiprun_out")
     if out.is_dir():
-        (out / "profile_table.txt").write_text(prof.key_averages().table(
+        table = "profile_table.txt" if which == "main" else \
+            f"profile_table_{which}.txt"
+        (out / table).write_text(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=60))
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "steps": STEPS,
+        "config": which, "device": torch.cuda.get_device_name(0),
+        "steps": STEPS,
         "step_ms": step_ms, "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / step_ms,
         "hand_written_kernels_ms_per_step": ours_ms,

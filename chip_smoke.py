@@ -12,6 +12,15 @@ Phases, each reporting on lines of its own:
    parity_train — two res-4 steps with grad_accum=2, remat and the cosine
    lr, card against CPU, and on the card remat's gradients against none;
    parity_eval — the res-4 inference step, card against CPU;
+   parity_lap_disn — two res-4 f32 steps, card against CPU, with the lap
+   layer, with DISN at the tests' tiny width, and with both and remat;
+   lap_step — bench.py's configuration with the lap layer through
+   ``Engine``: one warm-up and five timed steps (18 K1 launches each),
+   the lap head's K1 inputs kept apart, then K1 checked at them;
+   disn_step — bench.py's configuration with DISN at its default widths
+   (VGG-16, 64 x 64 images rendered by make_example): six steps, the
+   bytes each segment saves, a full-inference step at 100,000 points a
+   side, then K1 (the Laplacian), K2 and K3 checked at its inputs;
 4. main    — the full-width res-50 / batch-4 train step (bench.py's
    configuration, bf16) through ``Engine``: one warm-up step and five
    timed steps, launch counts per kernel read around them;
@@ -29,7 +38,8 @@ Phases, each reporting on lines of its own:
    edge cases;
 7. cli     — ``python -m deftet_tpu_torch.cli train`` then ``eval`` in
    subprocesses, and a restored engine's step against the uninterrupted
-   one's;
+   one's; then ``preprocess --with_images`` over the bundled meshes,
+   ``train --use_disn --use_lap_layer --mesh_dir`` and ``eval``;
 8. the 2D-supervision renderer: render_parity (a small scene's mov and
    fix stages and one frame, card against CPU); render (the full-width
    protocol scene through run_pipeline: res-40 grid, k 300, carves,
@@ -292,9 +302,12 @@ def bench_config():
                        per_face_samples=20)
 
 
-def main_path(config, device="cuda", occ_res=64):
+def main_path(config, device="cuda", occ_res=64,
+              expected=LAUNCHES_PER_STEP, label="main", key_fn=variant_key,
+              batch=None):
     """The train step through the port's Engine: one warm-up and
-    TIMED_STEPS timed steps, on bench.py's batch."""
+    TIMED_STEPS timed steps, on bench.py's batch (or ``batch``, numpy),
+    each step's launches held to ``expected``."""
     from deftet_tpu_torch.ops import _cuda
     from deftet_tpu_torch.train import Engine
 
@@ -302,12 +315,13 @@ def main_path(config, device="cuda", occ_res=64):
     engine = Engine(config, device=device)
     t_engine = time.perf_counter() - t0
     b = config.batch_size
-    batch = engine._prep_batch(bench_batch(config, occ_res=occ_res))
+    batch = engine._prep_batch(batch if batch is not None else
+                               bench_batch(config, occ_res=occ_res))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     step_s, per_step = [], []
-    with Recorder() as rec:
+    with Recorder(key_fn) as rec:
         for step in range(1 + TIMED_STEPS):
             _cuda.reset_launch_counts()
             torch.cuda.synchronize()
@@ -317,23 +331,23 @@ def main_path(config, device="cuda", occ_res=64):
             dt = time.perf_counter() - t
             counts = dict(_cuda.launch_counts)
             terms = {k: float(v) for k, v in terms.items()}
-            say("main_step", step=step, warmup=step == 0, seconds=dt,
+            say(f"{label}_step", step=step, warmup=step == 0, seconds=dt,
                 launches=counts, terms=terms)
             bad = [k for k, v in terms.items() if not np.isfinite(v)]
             if bad:
                 raise AssertionError(f"non-finite loss terms: {bad}")
-            if counts != LAUNCHES_PER_STEP:
+            if counts != expected:
                 raise AssertionError(
-                    f"launches {counts} != expected {LAUNCHES_PER_STEP}")
+                    f"launches {counts} != expected {expected}")
             per_step.append(counts)
             if step:
                 step_s.append(dt)
-    launches = {k: sum(c[k] for c in per_step) for k in LAUNCHES_PER_STEP}
-    say("main", config=f"res={config.res} batch={b} {config.precision}",
+    launches = {k: sum(c[k] for c in per_step) for k in expected}
+    say(label, config=f"res={config.res} batch={b} {config.precision}",
         engine_init_s=t_engine, steps=TIMED_STEPS,
         median_step_s=statistics.median(step_s), step_s=step_s,
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-        launches_total=launches, launches_per_step=LAUNCHES_PER_STEP)
+        launches_total=launches, launches_per_step=expected)
     per_variant = {k: c / (1 + TIMED_STEPS) for k, c in rec.counts.items()}
     return rec.inputs, launches, per_variant, engine
 
@@ -382,6 +396,32 @@ def check_stencil_launches(x, n, offsets, inv_deg):
     return {"forward": fwd, "backward": bwd}
 
 
+def stencil_launches():
+    """check_stencil_launches on inputs of the main path's GCN shape
+    (bf16, 4 x 51^3 x 256, the lattice's 14 offsets), run first in the
+    process: on an H100 (torch 2.11) torch.profiler recorded no device
+    events in sessions that followed the kernel checks' cdist calls (16
+    GB matrices) in the same process."""
+    from deftet_tpu_torch.ops import stencil
+    from deftet_tpu_torch.tetgrid import build_tet_grid
+    from deftet_tpu_torch.train.statics import lattice_offsets
+
+    n = bench_config().res + 1
+    offsets = lattice_offsets(build_tet_grid(2))
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.randn((4, n**3, 256), generator=g, device=DEVICE).to(
+        torch.bfloat16)
+    inv_deg = 1.0 / torch.randint(1, 15, (n**3,), generator=g,
+                                  device=DEVICE).float()
+    # one forward and backward first: the first launch for a lattice also
+    # copies its offset table to the card
+    xg = x.detach().requires_grad_()
+    y = stencil.lattice_neighbor_mean(xg, inv_deg, n, offsets)
+    torch.autograd.grad(y, xg, torch.ones_like(y))
+    kernels = check_stencil_launches(x, n, offsets, inv_deg)
+    say("stencil_launches", shape=list(x.shape), kernels=kernels)
+
+
 def stencil_library(x, n, offsets, scale, in_scale):
     """The library yardstick of one K1 call: a depthwise conv3d with the
     binary stencil on the channels-last view of x (no copy), the source
@@ -410,7 +450,7 @@ def stencil_library(x, n, offsets, scale, in_scale):
 
 
 def check_stencil(inputs, per_step, label="kernel_stencil",
-                  profile_launches=True):
+                  row_key=("stencil", "bfloat16", 256, "forward")):
     """Every K1 variant of a path, plus the bf16 GCN inputs in f32 (the
     precision="f32" path), against the plain version: equal bit for bit
     (same f32 sums in the same order, same roundings).  Each of the
@@ -451,17 +491,14 @@ def check_stencil(inputs, per_step, label="kernel_stencil",
             step_ms += ms * per_step[key]
         report["/".join(map(str, key[1:]))] = row
 
-    # the kernels line reports the dominant call: the GCN forward, C = 256
-    x, n, offsets, scale, _ = cases[("stencil", "bfloat16", 256, "forward")]
-    profiled = None
-    if profile_launches:
-        inv_deg = cases[("stencil", "bfloat16", 256, "backward")][4]
-        profiled = check_stencil_launches(x, n, offsets, inv_deg)
-    fwd = report["bfloat16/256/forward"]
+    # the kernels line reports ``row_key``: the dominant call, the GCN
+    # forward at C = 256 (the Laplacian's forward where the path has no GCN)
+    x, n, offsets, scale, _ = cases[row_key]
+    fwd = report["/".join(map(str, row_key[1:]))]
     plain_ms = cuda_ms(
         lambda: stencil.stencil_sum_plain(x, n, offsets, scale), 3)
     worst = max(r["max_abs_err"] for r in report.values())
-    say(label, variants=report, step_ms=step_ms, profiled_kernels=profiled)
+    say(label, variants=report, step_ms=step_ms)
     return dict(ms=fwd["ms"], plain_ms=plain_ms, bound_ms=fwd["bound_ms"],
                 bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
                 max_abs_err=worst, step_ms=step_ms,
@@ -885,6 +922,51 @@ def on_device(draws, device):
     return out
 
 
+def step_draws(cfg, rng, batch_size):
+    """One microbatch's injected draws (numpy): input noise, the center
+    subsample and the chamfer barycentrics."""
+    bary = (batch_size, cfg.resolved_max_boundary_faces(),
+            cfg.per_face_samples, 1)
+    return {"noise": rng.normal(size=(batch_size, cfg.n_point, 3)),
+            "center_idx": rng.integers(0, 6 * cfg.res**3, cfg.occ_sample),
+            "bary_u": rng.uniform(size=bary),
+            "bary_v": rng.uniform(size=bary)}
+
+
+def train_runs(cfg, batch, draws, devices):
+    """(initial state, {device: run}): on each device an engine from the
+    first device's initial parameters takes one train step per entry of
+    ``draws`` (a dict, or a list of one per microbatch); a run holds the
+    terms and BatchNorm statistics after each step, each parameter's
+    update and Adam's first moment."""
+    from deftet_tpu_torch.train import Engine
+
+    state, runs = None, {}
+    for device in devices:
+        engine = Engine(cfg, device=device)
+        if state is None:
+            state = {n: v.clone() for n, v in
+                     engine.model.state_dict().items()}
+        engine.model.load_state_dict(state)
+        prepped = engine._prep_batch(batch)
+        terms, stats = [], []
+        for step in draws:
+            d = ([on_device(x, device) for x in step]
+                 if isinstance(step, list) else on_device(step, device))
+            t = engine.train_step(prepped, draws=d)
+            terms.append({n: float(v) for n, v in t.items()})
+            stats.append({n: v.detach().cpu().clone() for n, v in
+                          engine.model.named_buffers()})
+        names = [n for n, _ in engine.model.named_parameters()]
+        runs[device] = dict(
+            terms=terms, stats=stats,
+            update={n: (p.detach() - state[n].to(device)).cpu()
+                    for n, p in engine.model.named_parameters()},
+            mu={n: m.cpu().clone()
+                for n, m in zip(names, engine.optimizer.mu)})
+    return state, runs
+
+
 def parity_train(devices=("cpu", DEVICE)):
     """The res-4 / batch-4 f32 train step with grad_accum=2, remat and the
     cosine lr, card against CPU, two steps from the same parameters and
@@ -913,37 +995,11 @@ def parity_train(devices=("cpu", DEVICE)):
     cfg = small_config(batch_size=4, grad_accum=2, remat=True,
                        lr_decay_steps=3)
     rng = np.random.default_rng(12)
-    k = cfg.resolved_max_boundary_faces()
     mb = cfg.batch_size // cfg.grad_accum
-    bary = (mb, k, cfg.per_face_samples, 1)
-    draws = [[{"noise": rng.normal(size=(mb, cfg.n_point, 3)),
-               "center_idx": rng.integers(0, 6 * cfg.res**3, cfg.occ_sample),
-               "bary_u": rng.uniform(size=bary),
-               "bary_v": rng.uniform(size=bary)}
-              for _ in range(cfg.grad_accum)] for _ in range(2)]
+    draws = [[step_draws(cfg, rng, mb) for _ in range(cfg.grad_accum)]
+             for _ in range(2)]
     batch = bench_batch(cfg, level=1, occ_res=16)
-    state, runs = None, {}
-    for device in devices:
-        engine = Engine(cfg, device=device)
-        if state is None:
-            state = {n: v.clone() for n, v in
-                     engine.model.state_dict().items()}
-        engine.model.load_state_dict(state)
-        prepped = engine._prep_batch(batch)
-        terms, stats = [], []
-        for step in draws:
-            t = engine.train_step(prepped,
-                                  draws=[on_device(d, device) for d in step])
-            terms.append({n: float(v) for n, v in t.items()})
-            stats.append({n: v.detach().cpu().clone() for n, v in
-                          engine.model.named_buffers()})
-        names = [n for n, _ in engine.model.named_parameters()]
-        runs[device] = dict(
-            terms=terms, stats=stats,
-            update={n: (p.detach() - state[n].to(device)).cpu()
-                    for n, p in engine.model.named_parameters()},
-            mu={n: m.cpu().clone()
-                for n, m in zip(names, engine.optimizer.mu)})
+    state, runs = train_runs(cfg, batch, draws, devices)
     cpu, gpu = (runs[d] for d in devices)
     live_ratio, slack = 0.0, 0.0
     noise = 3 * cfg.lr * len(draws)  # a noise-driven update's reach
@@ -1008,9 +1064,10 @@ def parity_train(devices=("cpu", DEVICE)):
                                  f"not once per microbatch")
 
 
-def eval_batch(seeds, n_surface, n_sdf, level, occ_res):
+def eval_batch(seeds, n_surface, n_sdf, level, occ_res, with_image=False):
     """Records of the port's make_example for random_shape(seed, level),
-    padded as ShapeDataset pads them (numpy)."""
+    padded as ShapeDataset pads them (numpy); with an image and camera
+    each if ``with_image`` (drawn after the rest, which is unchanged)."""
     from deftet_tpu_torch.data.pipeline import make_example
     from deftet_tpu_torch.data.shapes import random_shape, shape_family
 
@@ -1019,12 +1076,13 @@ def eval_batch(seeds, n_surface, n_sdf, level, occ_res):
         verts, faces = random_shape(seed, level=level)
         exs.append(make_example(verts, faces, n_surface, n_sdf,
                                 np.random.default_rng(seed),
-                                occ_grid_res=occ_res))
+                                occ_grid_res=occ_res, with_image=with_image))
     b = len(exs)
     nv = max(e["verts"].shape[0] for e in exs)
     nf = max(e["faces"].shape[0] for e in exs)
-    batch = {k: np.stack([e[k] for e in exs])
-             for k in ("surface_points", "sdf_points", "sdf", "occ_grid")}
+    keys = ("surface_points", "sdf_points", "sdf", "occ_grid") + (
+        ("imgs", "cam_matrix") if with_image else ())
+    batch = {k: np.stack([e[k] for e in exs]) for k in keys}
     batch["verts"] = np.zeros((b, nv, 3), np.float32)
     batch["faces"] = np.zeros((b, nf, 3), np.int32)
     batch["n_verts"] = np.array([e["verts"].shape[0] for e in exs], np.int32)
@@ -1088,6 +1146,241 @@ def parity_eval(devices=("cpu", DEVICE)):
                              f"n_boundary {cpu['n_boundary']}")
 
 
+# ------------------------------------------- the lap layer and DISN paths
+DISN_TINY = dict(use_disn=True, disn_width=0.05, disn_encoding_dim=64,
+                 disn_image_size=32, disn_local_feature_size=16)
+# launches per full-width step: both GCN heads (4 + 4 forward, 4 + 4
+# backward) and the Laplacian's forward and backward; DISN runs no GCN
+LAP_LAUNCHES = {"stencil": 18, "nearest": 1, "tri_argmin": 1,
+                "raster_hit": 0}
+DISN_LAUNCHES = {"stencil": 2, "nearest": 1, "tri_argmin": 1,
+                 "raster_hit": 0}
+
+
+def leaf_ratio(got, ref, rtol, atol) -> float:
+    """||got - ref|| / (rtol ||ref|| + atol sqrt(n)): within tolerance when
+    <= 1."""
+    got, ref = (torch.as_tensor(x).double().cpu() for x in (got, ref))
+    if not ref.numel():
+        return 0.0
+    return float(torch.linalg.norm(got - ref) / (
+        rtol * torch.linalg.norm(ref) + atol * ref.numel() ** 0.5))
+
+
+def image_batch(batch, seeds):
+    """``batch`` (numpy) with the images and cameras that the port's
+    make_example(with_image=True) renders of random_shape(0, level 2),
+    bench_batch's shape, one camera per seed."""
+    from deftet_tpu_torch.data.pipeline import make_example
+    from deftet_tpu_torch.data.shapes import random_shape
+
+    verts, faces = random_shape(0, level=2)
+    exs = [make_example(verts, faces, 16, 16, np.random.default_rng(seed),
+                        occ_grid_res=8, with_image=True) for seed in seeds]
+    return dict(batch, imgs=np.stack([e["imgs"] for e in exs]),
+                cam_matrix=np.stack([e["cam_matrix"] for e in exs]))
+
+
+def parity_lap_disn(devices=("cpu", DEVICE)):
+    """The card against the CPU at res 4 in float32, two train steps each
+    from the same parameters and injected draws, on three configurations:
+    the point path with the lap layer, DISN at the tests' tiny width, and
+    DISN with the lap layer and remat.  parity_train's tolerances: terms
+    rtol 1e-4 / atol 1e-6; Adam's first moment rtol 1e-3 / atol 1e-6; the
+    live updates rtol 1e-3 / atol 1e-7 and every update within 3 lr a
+    step; BatchNorm statistics rtol 1e-4 / atol 1e-6 (the running means
+    of the second step within 2 lr).  As in the CPU tests of these paths
+    (tests/test_torch_lap.py): the moments and updates are held per leaf
+    in norm (a DISN decoder's ReLU input can sit within the devices'
+    float32 difference of 0 and switch for one point), and the normal
+    term's per-face fields run in float32 on both devices (in bf16 a
+    field within that difference of a rounding boundary flips)."""
+    from deftet_tpu_torch.losses import surface
+
+    configs = {
+        "lap": small_config(use_lap_layer=True),
+        "disn": small_config(**DISN_TINY),
+        "disn_lap_remat": small_config(use_lap_layer=True, remat=True,
+                                       **DISN_TINY),
+    }
+    field_dtype = surface.NORMAL_FIELD_DTYPE
+    surface.NORMAL_FIELD_DTYPE = torch.float32
+    report = {}
+    try:
+        for name, cfg in configs.items():
+            rng = np.random.default_rng(14)
+            draws = [step_draws(cfg, rng, cfg.batch_size) for _ in range(2)]
+            batch = bench_batch(cfg, level=1, occ_res=16)
+            if cfg.use_disn:
+                batch = image_batch(batch, range(cfg.batch_size))
+            _, runs = train_runs(cfg, batch, draws, devices)
+            cpu, gpu = (runs[d] for d in devices)
+            noise = 3 * cfg.lr * len(draws)
+            live = {n: cpu["mu"][n].abs() > 1e-6 for n in cpu["mu"]}
+            worst = {
+                "terms": max(ratio(g[n], c[n], 1e-4, 1e-6)
+                             for g, c in zip(gpu["terms"], cpu["terms"])
+                             for n in c),
+                "mu": max(leaf_ratio(gpu["mu"][n], v, 1e-3, 1e-6)
+                          for n, v in cpu["mu"].items()),
+                "update": max(leaf_ratio(gpu["update"][n][live[n]],
+                                         v[live[n]], 1e-3, 1e-7)
+                              for n, v in cpu["update"].items()),
+                "update_noise": max(
+                    float((gpu["update"][n] - v).abs().max()) / noise
+                    for n, v in cpu["update"].items()),
+            }
+            if cpu["stats"][0]:
+                (s1, s2), (c1, c2) = gpu["stats"], cpu["stats"]
+                worst["batch_stats_step1"] = max(
+                    ratio(s1[n], v, 1e-4, 1e-6) for n, v in c1.items())
+                worst["running_var_step2"] = max(
+                    ratio(s2[n], v, 1e-4, 1e-6) for n, v in c2.items()
+                    if "var" in n)
+                worst["running_mean_step2"] = max(
+                    ratio(s2[n], v, 0.0, 2 * cfg.lr) for n, v in c2.items()
+                    if "mean" in n)
+            report[name] = dict(worst_ratios=worst, terms_cuda=gpu["terms"],
+                                terms_cpu=cpu["terms"])
+    finally:
+        surface.NORMAL_FIELD_DTYPE = field_dtype
+    say("parity_lap_disn", **report)
+    bad = {n: r["worst_ratios"] for n, r in report.items()
+           if not all(v <= 1.0 for v in r["worst_ratios"].values())}
+    if bad:
+        raise AssertionError(f"lap / DISN parity failed: {bad}")
+
+
+def lap_key():
+    """variant_key, with the GCN stencil calls (bf16, C = 256) told apart
+    by head: in a step the first head's four forwards come before the lap
+    head's, and the lap head's four backwards before the first head's."""
+    seen = {}
+
+    def key(name, args):
+        k = variant_key(name, args)
+        if name != "stencil" or k[1:3] != ("bfloat16", 256):
+            return k
+        i = seen.get(k, 0)
+        seen[k] = i + 1
+        early = i % 8 < 4
+        lap = not early if k[3] == "forward" else early
+        return k + ("lap" if lap else "first",)
+    return key
+
+
+def lap_config():
+    """bench.py's configuration with the lap layer."""
+    cfg = bench_config()
+    cfg.use_lap_layer = True
+    return cfg
+
+
+def lap_step():
+    """The res-50 / batch-4 bf16 step with the lap layer through Engine:
+    one warm-up and five timed steps, 18 K1 launches each; the lap head's
+    K1 inputs kept apart from the first head's."""
+    inputs, launches, per_variant, engine = main_path(
+        lap_config(), device=DEVICE, expected=LAP_LAUNCHES,
+        label="lap_step", key_fn=lap_key())
+    del engine
+    torch.cuda.empty_cache()
+    return inputs, launches, per_variant
+
+
+def check_lap_kernels(inputs, per_variant):
+    """K1 at the lap path's inputs: the lap head's GCN forward and
+    backward (C = 256) and the Laplacian's, exact against the plain
+    version; the per-step time weights the lap head's calls by both
+    heads' launches (the first head's inputs have the same shape)."""
+    cases = {k[:4]: v for k, v in inputs.items()
+             if k[0] == "stencil" and (len(k) == 4 or k[4] == "lap")}
+    per_step = {}
+    for k, c in per_variant.items():
+        if k[0] == "stencil":
+            per_step[k[:4]] = per_step.get(k[:4], 0) + c
+    return check_stencil(cases, per_step, label="kernel_stencil_lap")
+
+
+def disn_config():
+    """bench.py's configuration with the DISN branch at its defaults:
+    VGG-16 at full width, a 1,000-wide global code, 64 x 64 images and
+    64 x 64 local maps."""
+    cfg = bench_config()
+    cfg.use_disn = True
+    return cfg
+
+
+def disn_step(eval_batch_np):
+    """The res-50 / batch-4 step of the image-conditioned network through
+    Engine on bench_batch's shape rendered from four cameras: one warm-up
+    and five timed steps (K1 only for the Laplacian), the bytes each
+    forward segment saves, then one full-inference step at 100,000 points a
+    side on the eval batch with images (a first call, then a timed one,
+    and its forward with the full-grid occupancy alone)."""
+    from deftet_tpu_torch.evals import harness
+    from deftet_tpu_torch.ops import _cuda
+
+    cfg = disn_config()
+    batch = image_batch(bench_batch(cfg, occ_res=64), range(cfg.batch_size))
+
+    inputs, launches, per_variant, engine = main_path(
+        cfg, device=DEVICE, expected=DISN_LAUNCHES, label="disn_step",
+        batch=batch)
+    say("disn_segments", saved_bytes_by_segment=segment_bytes(
+        engine, engine._prep_batch(batch)))
+    cfg.eval_points = EVAL_POINTS
+    prepped = engine._prep_batch(eval_batch_np)
+    infer = engine.inference_step()
+    gen = torch.Generator(device=engine.device).manual_seed(cfg.seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    out = {n: float(v) for n, v in infer(prepped, engine.statics,
+                                         gen).items()}
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    infer_launches = dict(_cuda.launch_counts)
+    gen = torch.Generator(device=engine.device).manual_seed(cfg.seed)
+    t = time.perf_counter()
+    infer(prepped, engine.statics, gen)
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t
+    with torch.no_grad():
+        predict_ms = host_ms(lambda: harness._predict(
+            engine.model, prepped, engine.statics, cfg,
+            engine.lattice_offsets, engine.tet_lattice), 2)
+    say("disn_infer", first_s=first_s, seconds=infer_s,
+        predict_forward_and_occupancy_ms=predict_ms, metrics=out,
+        launches=infer_launches,
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    bad = [n for n, v in out.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"DISN inference: non-finite {bad}")
+    if infer_launches["nearest"] == 0 or infer_launches["tri_argmin"] == 0:
+        raise AssertionError(f"DISN inference launched {infer_launches}")
+    del engine, prepped
+    torch.cuda.empty_cache()
+    return inputs, launches, per_variant
+
+
+def check_disn_kernels(inputs, per_variant):
+    """K1 (the Laplacian, C = 3), K2 and K3 at the DISN path's inputs,
+    exact against their plain versions and timed beside their bounds."""
+    return {
+        "stencil": check_stencil(
+            {k: v for k, v in inputs.items() if k[0] == "stencil"},
+            {k: c for k, c in per_variant.items() if k[0] == "stencil"},
+            label="kernel_stencil_disn",
+            row_key=("stencil", "float32", 3, "forward")),
+        "nearest": check_nearest(inputs[("nearest",)],
+                                 label="kernel_nearest_disn"),
+        "tri_argmin": check_tri_argmin(inputs[("tri_argmin",)],
+                                       label="kernel_tri_argmin_disn"),
+    }
+
+
 EVAL_POINTS = 100_000  # deftet-eval's default (deftet_tpu/cli.py:154)
 EVAL_SDF = 20_000      # the pipeline's n_sdf default
 EVAL_RUNS = 3
@@ -1107,11 +1400,20 @@ def host_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def eval_phase(engine):
+def eval_data():
+    """(batch, seconds to build it) of the full-width evaluations (the
+    point path's and DISN's): four shapes of the port's make_example
+    (random_shape 0-3, level 2; 5,000 surface points, 20,000 SDF points,
+    a 64^3 texture, a 64 x 64 image and its camera)."""
+    t0 = time.perf_counter()
+    batch = eval_batch(range(4), 5000, EVAL_SDF, level=2, occ_res=64,
+                       with_image=True)
+    return batch, time.perf_counter() - t0
+
+
+def eval_phase(engine, data):
     """The main path's res-50 / batch-4 / bf16 engine after its steps,
-    evaluated on four shapes of the port's make_example (random_shape
-    0-3, level 2; 5,000 surface points, 20,000 SDF points, a 64^3
-    texture) at 100,000 surface points a side: validate and
+    evaluated on ``data`` (eval_data) at 100,000 surface points a side: validate and
     validate_inference, then one warm-up and EVAL_RUNS timed inference
     steps with the launch counts read around them, and the parts of the
     step timed alone (the forward with the full-grid occupancy,
@@ -1124,10 +1426,7 @@ def eval_phase(engine):
     cfg = engine.config
     cfg.eval_points = EVAL_POINTS
     cfg.logdir = str(ROOT / "build" / "smoke_eval")  # validate's log
-    t0 = time.perf_counter()
-    batch = eval_batch(range(4), max(cfg.num_sample_points, cfg.n_point),
-                       EVAL_SDF, level=2, occ_res=64)
-    data_s = time.perf_counter() - t0
+    batch, data_s = data
     prepped = engine._prep_batch(batch)
     infer = engine.inference_step()
 
@@ -1205,7 +1504,7 @@ def check_eval_kernels(ev):
     k1 = check_stencil({k: v for k, v in inputs.items() if k[0] == "stencil"},
                        {k: c for k, c in per_run.items()
                         if k[0] == "stencil"},
-                       label="kernel_stencil_eval", profile_launches=False)
+                       label="kernel_stencil_eval")
     (nn_key,) = [k for k in inputs if k[0] == "nearest"]
     k2 = check_nearest(inputs[nn_key], label="kernel_nearest_eval", reps=5)
     k2["launches_per_run"] = per_run[nn_key]
@@ -1364,8 +1663,7 @@ def check_paper_kernels(inputs, per_step):
     against their plain versions and timed beside their bounds."""
     return {
         "stencil": check_stencil(inputs, per_step,
-                                 label="kernel_stencil_paper",
-                                 profile_launches=False),
+                                 label="kernel_stencil_paper"),
         "nearest": check_nearest(inputs[("nearest",)],
                                  label="kernel_nearest_paper"),
         "tri_argmin": check_tri_argmin(inputs[("tri_argmin",)],
@@ -1379,6 +1677,13 @@ CLI_TINY = ["--res", "4", "--batch_size", "2", "--n_point", "128",
             "--per_face_samples", "4", "--encoder_blocks", "8,1,8;16,1,4",
             "--gcn_hidden", "16,8", "--pos_mlp_hidden", "8",
             "--occ_mlp_hidden", "16,8", "--epochs", "2", "--n_shapes", "6"]
+# the image-conditioned network with the lap layer, trained by the CLI on
+# the bundled meshes at DISN's default widths and a res-8 grid: one shape
+# a step, two trained on and one held out, two epochs (each checkpoint
+# holds two full VGG-16s with their Adam moments, 3.3 GB)
+CLI_DISN = ["--res", "8", "--batch_size", "1", "--epochs", "2",
+            "--use_disn", "--use_lap_layer", "--watertight_res", "32"]
+MESHES = ROOT / "tests" / "assets" / "meshes"
 METRICS = ("occ_iou", "val_iou_max", "f_score", "f_score_extend", "chamfer",
            "chamfer_l1", "hausdorff", "hausdorff_max", "n_boundary",
            "boundary_overflow")
@@ -1391,7 +1696,10 @@ def cli_phase():
     every metric.  Then, in this process, an engine restored from the
     'last' checkpoint takes the step the uninterrupted engine takes: the
     terms, parameters and statistics rtol 1e-5 / atol 1e-7 (kernels with
-    atomics may reorder float sums on the card)."""
+    atomics may reorder float sums on the card).  Then the mesh-directory
+    path: ``preprocess --with_images`` over the bundled meshes (host
+    only), ``train --use_disn --use_lap_layer --mesh_dir`` on them and
+    ``eval`` of that experiment, each exiting 0 with its files."""
     import shutil
 
     from deftet_tpu_torch.config import TrainConfig
@@ -1439,10 +1747,42 @@ def cli_phase():
              + list(zip(fresh.model.buffers(), engine.model.buffers())))
     worst = max(ratio(a.detach(), b.detach(), 1e-5, 1e-7) for a, b in pairs)
     identical = all(torch.equal(a, b) for a, b in pairs)
-    say("cli", train_s=train_s, eval_s=eval_s, metrics=metrics,
-        restore_worst_ratio=worst, restore_bit_identical=identical)
     if not worst <= 1.0:
         raise AssertionError(f"restored engine diverged: ratio {worst}")
+
+    data = work / "mesh_data"
+    preprocess_s = run("preprocess", "--mesh_dir", str(MESHES),
+                       "--dataset_root", str(data), "--watertight_res", "32",
+                       "--with_images", "--num_workers", "3")
+    shards = sorted(p.name for p in data.glob("mesh_*.npz"))
+    for shard in shards:
+        with np.load(data / shard) as d:
+            if d["imgs"].shape != (64, 64, 3) or not np.isfinite(
+                    d["imgs"]).all():
+                raise AssertionError(f"{shard}: images {d['imgs'].shape}")
+    if len(shards) != 3:
+        raise AssertionError(f"preprocess wrote {shards}")
+    disn_train_s = run("train", "--device", DEVICE, *CLI_DISN,
+                       "--mesh_dir", str(MESHES), "--dataset_root", str(data),
+                       "--logdir", str(work / "disn_exp"))
+    (disn_exp,) = (work / "disn_exp").iterdir()
+    disn_eval_s = run("eval", "--device", DEVICE, "--experiment_path",
+                      str(disn_exp), "--eval_points", str(EVAL_POINTS))
+    files = sorted(p.name for p in disn_exp.iterdir())
+    disn_report = json.loads((disn_exp / "result_update.json").read_text())
+    bad = [n for n in METRICS
+           if not np.isfinite(disn_report["metrics"].get(n, np.nan))]
+    cfg = json.loads((disn_exp / "config.json").read_text())
+    if bad or not (cfg["use_disn"] and cfg["use_lap_layer"]) or \
+            "result_update.txt" not in files or \
+            "meshes" not in disn_report["per_category"]:
+        raise AssertionError(f"DISN eval report lacks {bad}: {files} "
+                             f"{disn_report}")
+    say("cli", train_s=train_s, eval_s=eval_s, metrics=metrics,
+        restore_worst_ratio=worst, restore_bit_identical=identical,
+        preprocess_s=preprocess_s, shards=shards, disn_train_s=disn_train_s,
+        disn_eval_s=disn_eval_s, disn_files=files,
+        disn_metrics=disn_report["metrics"])
 
 
 # ------------------------------------------------------------ the renderer
@@ -2087,12 +2427,25 @@ def main() -> int:
 
     smi = timed("header", header)
     timed("build", build)
+    timed("stencil_launches", stencil_launches)
     timed("parity", parity)
     timed("parity_train", parity_train)
     timed("parity_eval", parity_eval)
+    timed("parity_lap_disn", parity_lap_disn)
+    lap_inputs, lap_launches, lap_per_variant = timed("lap_step", lap_step)
+    lap_kernels = timed("lap_kernels", check_lap_kernels, lap_inputs,
+                        lap_per_variant)
+    del lap_inputs
+    ev_data = timed("eval_data", eval_data)
+    disn_inputs, disn_launches, disn_per_variant = timed(
+        "disn_step", disn_step, ev_data[0])
+    disn_kernels = timed("disn_kernels", check_disn_kernels, disn_inputs,
+                         disn_per_variant)
+    del disn_inputs
+    torch.cuda.empty_cache()
     inputs, launches, per_variant, engine = timed("main", main_path,
                                                   bench_config())
-    ev = timed("eval", eval_phase, engine)
+    ev = timed("eval", eval_phase, engine, ev_data)
     del engine
     torch.cuda.empty_cache()
     results = timed("kernels", lambda: {
@@ -2140,6 +2493,16 @@ def main() -> int:
         kernels.append(kernel_entry(
             name, res, paper_rows[False]["launches_total"][name],
             "paper_step (res 70, batch 8, grad_accum 2, no remat)"))
+    kernels.append(kernel_entry(
+        "stencil", lap_kernels, lap_launches["stencil"],
+        "lap_step (res 50, batch 4, bf16, use_lap_layer): the lap head's "
+        "GCN forward at C = 256; step_ms weights its calls by both heads' "
+        "launches"))
+    for name, res in disn_kernels.items():
+        kernels.append(kernel_entry(
+            name, res, disn_launches[name],
+            "disn_step (res 50, batch 4, use_disn, VGG-16 at full width)"
+            + (": the Laplacian, C = 3" if name == "stencil" else "")))
     kernels.append(kernel_entry("stencil", eval_kernels["stencil"],
                                 ev["launches"]["stencil"], "eval"))
     kernels.append(kernel_entry("nearest", eval_kernels["nearest"],

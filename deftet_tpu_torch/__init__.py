@@ -9,12 +9,15 @@ it.
 Sub-packages mirror the JAX package:
 
 * ``tetgrid`` — numpy grid / lattice-face builders (own copies).
-* ``data``    — procedural shapes, the occupancy texture and the synthetic
-  dataset (own copies).
+* ``data``    — procedural shapes, the occupancy texture, the synthetic
+  dataset, mesh-directory ingestion (watertight remesh) and the DISN
+  images (own copies).
 * ``ops``     — geometry, voxelization, ray-parity occupancy, point-in-tet
   and the three kernels: the lattice stencil (``ops.stencil``), nearest
   neighbour (``ops.nearest``) and triangle argmin (``ops.tri_distance``).
-* ``nn``      — PVCNN encoders, GCN position decoder, occupancy MLP.
+* ``nn``      — PVCNN encoders, GCN position decoder (and its lap
+  refinement head), occupancy MLP, the DISN image branch and its offline
+  VGG-16 loader.
 * ``losses``  — SoA tet regularizers and the compacted surface losses.
 * ``evals``   — the metrics and the full-inference evaluation.
 * ``train``   — statics, ``forward_losses``, the optimizer, the train and
@@ -24,7 +27,8 @@ Sub-packages mirror the JAX package:
   optimizable tet scene and the staged carve/subdivide optimizer.
 * ``remat``   — rematerialization that keeps named no-grad results.
 * ``utils``   — OBJ IO and named timers.
-* ``cli``     — ``python -m deftet_tpu_torch.cli train|eval|render``.
+* ``cli``     — ``python -m deftet_tpu_torch.cli
+  train|eval|preprocess|render``.
 * ``convert`` — flax ``{"params", "batch_stats"}`` to a torch state dict.
 
 Importing the package compiles nothing and does not touch CUDA; kernels

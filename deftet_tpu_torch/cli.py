@@ -1,19 +1,21 @@
-"""Command-line entry points (torch port of deftet_tpu/cli.py's ``train``,
-``eval`` and ``render``):
+"""Command-line entry points (torch port of deftet_tpu/cli.py):
 
     python -m deftet_tpu_torch.cli train [--device cuda|cpu] [config flags]
     python -m deftet_tpu_torch.cli eval --experiment_path DIR [--device ...]
+    python -m deftet_tpu_torch.cli preprocess --mesh_dir DIR --dataset_root DIR
     python -m deftet_tpu_torch.cli render --synthetic|--datadir DIR [...]
 
-``train`` builds (or reuses) the procedural dataset, creates an
-experiment, and runs the fit loop with best-IoU checkpoints.  ``eval``
-restores an experiment's checkpoint and writes the validation losses and
-the inference metrics to ``result_update*.json`` and
-``result_update.txt``.  ``render`` runs the 2D-supervision optimizer on a
-NeRF-synthetic scene or a procedural one and writes ``records.json``,
-``surface.obj`` and a turntable video.  ``--device`` defaults to ``cuda``
-and never falls back to the CPU.  Not ported: ``preprocess``,
-``--mesh_dir`` and ``--use_disn``.
+``train`` builds (or reuses) the procedural dataset, or with
+``--mesh_dir`` the shards of a directory of OBJ meshes (with images when
+``--use_disn``), creates an experiment, and runs the fit loop with
+best-IoU checkpoints.  ``eval`` restores an experiment's checkpoint and
+writes the validation losses and the inference metrics to
+``result_update*.json`` and ``result_update.txt``.  ``preprocess``
+ingests a mesh directory into shards on the host (numpy only, no device).
+``render`` runs the 2D-supervision optimizer on a NeRF-synthetic scene or
+a procedural one and writes ``records.json``, ``surface.obj`` and a
+turntable video.  ``--device`` defaults to ``cuda`` and never falls back
+to the CPU.
 """
 
 from __future__ import annotations
@@ -28,8 +30,14 @@ import numpy as np
 import torch
 
 from .config import Experiment, TrainConfig, add_config_args, config_from_args
-from .data import ShapeDataset, batch_iterator, build_dataset
+from .data import (
+    ShapeDataset,
+    batch_iterator,
+    build_dataset,
+    build_dataset_from_meshes,
+)
 from .train import Engine
+from .train.engine import check_supported
 
 
 def _add_device_arg(parser: argparse.ArgumentParser) -> None:
@@ -46,12 +54,13 @@ def _device(parser: argparse.ArgumentParser, name: str) -> torch.device:
     return device
 
 
-def _refuse_unported(parser: argparse.ArgumentParser,
-                     config: TrainConfig) -> None:
-    if config.mesh_dir:
-        parser.error("--mesh_dir (mesh-directory ingestion) is not ported")
-    if config.use_disn:
-        parser.error("--use_disn (the DISN image branch) is not ported")
+def _refuse_unsupported(parser: argparse.ArgumentParser,
+                        config: TrainConfig) -> None:
+    """Refuse what the port does not run before anything is written."""
+    try:
+        check_supported(config)
+    except NotImplementedError as e:
+        parser.error(str(e))
 
 
 def _split(dataset: ShapeDataset, batch_size: int):
@@ -78,14 +87,17 @@ def _split(dataset: ShapeDataset, batch_size: int):
 
 
 def _dataset(config: TrainConfig) -> ShapeDataset:
-    paths = build_dataset(
-        config.dataset_root,
-        n_shapes=config.n_shapes,
-        n_surface=max(config.num_sample_points, config.n_point),
-        n_sdf=config.num_sample_points,
-        seed=config.seed,
-        occ_grid_res=config.resolved_occ_grid_res(),
-    )
+    common = dict(n_surface=max(config.num_sample_points, config.n_point),
+                  n_sdf=config.num_sample_points, seed=config.seed,
+                  occ_grid_res=config.resolved_occ_grid_res(),
+                  with_images=config.use_disn)
+    if config.mesh_dir:
+        paths = build_dataset_from_meshes(
+            config.dataset_root, config.mesh_dir,
+            watertight_res=config.watertight_res, **common)
+    else:
+        paths = build_dataset(config.dataset_root,
+                              n_shapes=config.n_shapes, **common)
     return ShapeDataset(paths)
 
 
@@ -95,7 +107,7 @@ def train_main(argv=None) -> int:
     _add_device_arg(parser)
     args = parser.parse_args(argv)
     config = config_from_args(args)
-    _refuse_unported(parser, config)
+    _refuse_unsupported(parser, config)
     device = _device(parser, args.device)
 
     dataset = _dataset(config)
@@ -171,7 +183,7 @@ def eval_main(argv=None) -> int:
         config = dataclasses.replace(config, res=args.res)
     if args.batch_size:
         config = dataclasses.replace(config, batch_size=args.batch_size)
-    _refuse_unported(parser, config)
+    _refuse_unsupported(parser, config)
     engine = Engine(config, device=device, experiment=experiment)
     engine.restore(args.checkpoint)
 
@@ -229,6 +241,32 @@ def eval_main(argv=None) -> int:
         suffix += f"_b{args.batch_size}"
     _write_reports(experiment, report, suffix)
     print(json.dumps(report, indent=2))
+    return 0
+
+
+def preprocess_main(argv=None) -> int:
+    """Offline mesh-directory ingestion: each OBJ under --mesh_dir
+    watertighted, surface- and SDF-sampled, its occupancy texture (and
+    with --with_images a DISN image and camera) written to an npz shard
+    under --dataset_root.  Host-only; touches no device."""
+    parser = argparse.ArgumentParser(prog="deftet_tpu_torch.cli preprocess")
+    parser.add_argument("--mesh_dir", required=True)
+    parser.add_argument("--dataset_root", required=True)
+    parser.add_argument("--n_surface", type=int, default=20000)
+    parser.add_argument("--n_sdf", type=int, default=20000)
+    parser.add_argument("--watertight_res", type=int, default=100)
+    parser.add_argument("--occ_grid_res", type=int, default=64)
+    parser.add_argument("--with_images", action="store_true",
+                        help="also render DISN images and camera matrices")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--num_workers", type=int, default=8)
+    args = parser.parse_args(argv)
+    paths = build_dataset_from_meshes(
+        args.dataset_root, args.mesh_dir, n_surface=args.n_surface,
+        n_sdf=args.n_sdf, seed=args.seed,
+        watertight_res=args.watertight_res, num_workers=args.num_workers,
+        occ_grid_res=args.occ_grid_res, with_images=args.with_images)
+    print(json.dumps({"n_shards": len(paths), "paths": paths}, indent=2))
     return 0
 
 
@@ -332,7 +370,8 @@ def render_main(argv=None) -> int:
     return 0
 
 
-COMMANDS = {"train": train_main, "eval": eval_main, "render": render_main}
+COMMANDS = {"train": train_main, "eval": eval_main,
+            "preprocess": preprocess_main, "render": render_main}
 
 
 def main(argv=None) -> int:

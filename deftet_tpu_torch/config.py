@@ -3,9 +3,8 @@ deftet_tpu/config.py).
 
 ``TrainConfig`` carries the JAX package's fields and defaults for what the
 port runs; a config JSON of the JAX package replays here (unknown keys are
-ignored).  ``use_disn``, ``use_lap_layer`` and ``mesh_dir`` are kept so
-that the engine and the CLI can refuse them by name rather than ignore
-them.  ``add_config_args`` compiles the dataclass into argparse
+ignored).  ``use_graph_attention`` is kept so that the engine can refuse
+it by name, as the JAX package asserts it off.  ``add_config_args`` compiles the dataclass into argparse
 flags (bools as ``--x`` / ``--no_x`` pairs); ``Experiment`` is the
 timestamped directory holding ``config.json`` and ``state.json``.
 """
@@ -100,9 +99,22 @@ class TrainConfig:
 
     timing: bool = False
 
-    # -- not ported, refused by name: the DISN branch and the lap layer ----
+    # -- DISN image branch: VGG-16 image encoders and global + local SDF
+    # decoders in place of the PVCNN encoders and the GCN / MLP decoders;
+    # batches carry ``imgs`` (B, H, W, 3) and ``cam_matrix`` (B, 4, 4)
+    # row-vector world-to-screen matrices
     use_disn: bool = False
+    disn_image_size: int = 64
+    disn_local_feature_size: int = 64
+    disn_encoding_dim: int = 1000  # the VGG classifier's width
+    disn_width: float = 1.0        # VGG width multiplier (1.0 = VGG-16-D)
+
+    # -- lap (refinement) layer: a second position decoder refining the
+    # first one's output.  lap_threshold and lambda_lap_v_loss are kept
+    # for config replay: the JAX package's lap_v_loss is identically zero
     use_lap_layer: bool = False
+    lap_threshold: float = 0.4
+    lambda_lap_v_loss: float = 10.0
 
     # -- training schedule --------------------------------------------------
     pretrain: str = ""  # experiment dir to warm-start parameters from
@@ -122,7 +134,10 @@ class TrainConfig:
     experiment_id: str = ""
     logdir: str = "experiments"
     dataset_root: str = "data_cache"
-    mesh_dir: str = ""  # not ported: the CLI refuses it
+    # train on the OBJ meshes under this directory tree (watertighted and
+    # sampled offline) instead of the procedural shape family
+    mesh_dir: str = ""
+    watertight_res: int = 100  # voxelization resolution of the remesh
     n_shapes: int = 32
     val_every: int = 1
     # select the best checkpoint by the threshold-swept SDF-point IoU of

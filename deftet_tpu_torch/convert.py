@@ -7,7 +7,8 @@ paths are the flax paths joined with dots, so the mapping is per leaf:
 
 * Dense ``kernel`` (in, out)              -> ``weight`` (out, in)
 * Conv ``kernel`` (k, k, k, in, out)      -> ``weight`` (out, in, k, k, k)
-  (a permutation, not a flip: both frameworks cross-correlate)
+  and 2D (kh, kw, in, out)               -> (out, in, kh, kw) (permutations,
+  not flips: both frameworks cross-correlate)
 * BatchNorm ``scale``                     -> ``weight``
 * ``bias``                                -> ``bias``
 * batch_stats ``mean`` / ``var``          -> ``running_mean`` / ``running_var``
@@ -41,6 +42,8 @@ def _param_leaf(path: tuple, arr: np.ndarray):
     mod = ".".join(path[:-1])
     if name == "kernel" and arr.ndim == 2:
         return f"{mod}.weight", arr.T
+    if name == "kernel" and arr.ndim == 4:
+        return f"{mod}.weight", arr.transpose(3, 2, 0, 1)
     if name == "kernel" and arr.ndim == 5:
         return f"{mod}.weight", arr.transpose(4, 3, 0, 1, 2)
     if name == "scale":

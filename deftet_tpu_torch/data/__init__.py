@@ -1,13 +1,16 @@
-"""Host-side data: procedural shapes, the occupancy texture and the
-synthetic dataset."""
+"""Host-side data: procedural shapes, the occupancy texture, the
+synthetic dataset, mesh-directory ingestion and the DISN images."""
 
 from .pipeline import (
     OCC_GRID_EXTENT,
     ShapeDataset,
     batch_iterator,
     build_dataset,
+    build_dataset_from_meshes,
     make_example,
+    mesh_sdf_points,
     occupancy_grid,
+    sample_surface,
 )
 from .shapes import random_shape, shape_family
 
@@ -16,8 +19,11 @@ __all__ = [
     "ShapeDataset",
     "batch_iterator",
     "build_dataset",
+    "build_dataset_from_meshes",
     "make_example",
+    "mesh_sdf_points",
     "occupancy_grid",
     "random_shape",
+    "sample_surface",
     "shape_family",
 ]

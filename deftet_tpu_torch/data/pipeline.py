@@ -1,6 +1,5 @@
 """Host-side data pipeline (numpy and scipy): the port's own copy of
-deftet_tpu/data/pipeline.py, without the mesh-directory ingestion and the
-DISN images.
+deftet_tpu/data/pipeline.py.
 
 Record schema per shape, padded so that batches have static shapes:
 
@@ -8,7 +7,12 @@ Record schema per shape, padded so that batches have static shapes:
   sdf_points     (P, 3)     uniform in 1.05 * [-0.5, 0.5]^3
   sdf            (P,)       signed distance, positive inside
   occ_grid       (G, G, G)  inside/outside texture over [-E, E]^3
-  verts (Vmax, 3), faces (Fmax, 3), n_verts, n_faces — the padded GT mesh.
+  verts (Vmax, 3), faces (Fmax, 3), n_verts, n_faces — the padded GT mesh;
+  imgs (H, W, 3), cam_matrix (4, 4) — with images, for the DISN branch.
+
+Shards come from the procedural shape family (``build_dataset``) or from a
+directory tree of OBJ meshes, watertighted first (``build_dataset_from_
+meshes``).
 
 The train step labels deformed tet centers by one read of the occupancy
 texture (``ops.voxelize.occupancy_from_grid_soa``).
@@ -17,6 +21,7 @@ texture (``ops.voxelize.occupancy_from_grid_soa``).
 from __future__ import annotations
 
 import os
+import zlib
 from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
@@ -24,6 +29,7 @@ import numpy as np
 from .shapes import random_shape, shape_family
 
 OCC_GRID_EXTENT = 0.55  # grid spans [-E, E]^3 (1.1x the unit box)
+IMG_SIZE = 64  # the DISN images' height and width
 
 
 def sample_surface(
@@ -316,11 +322,9 @@ def make_example(
     occ_grid_res: int = 64,
     with_image: bool = False,
 ) -> Dict[str, np.ndarray]:
-    if with_image:
-        raise NotImplementedError("the DISN image branch is not ported")
     surface = sample_surface(verts, faces, n_surface, rng)
     sdf_pts, sdf = mesh_sdf_points(verts, faces, n_sdf, rng)
-    return {
+    out = {
         "surface_points": surface.astype(np.float32),
         "sdf_points": sdf_pts,
         "sdf": sdf,
@@ -328,6 +332,16 @@ def make_example(
         "verts": verts.astype(np.float32),
         "faces": faces.astype(np.int32),
     }
+    if with_image:
+        # an image and its row-vector camera matrix for the DISN branch;
+        # the camera is drawn after the surface and SDF draws
+        from .image_render import random_camera, render_mesh_image
+
+        cam = random_camera(rng)
+        out["imgs"] = render_mesh_image(verts.astype(np.float32), faces, cam,
+                                        IMG_SIZE, IMG_SIZE)
+        out["cam_matrix"] = cam
+    return out
 
 
 def _shard_name(
@@ -402,6 +416,81 @@ def build_dataset(
     ]
 
 
+def _mesh_shard_path(root: str, mesh_path: str) -> str:
+    stem = os.path.splitext(os.path.basename(mesh_path))[0]
+    return os.path.join(root, f"mesh_{stem}.npz")
+
+
+def _build_mesh_shard(args) -> str:
+    (root, mesh_path, n_surface, n_sdf, seed, watertight_res,
+     occ_grid_res, with_image) = args
+    path = _mesh_shard_path(root, mesh_path)
+    if os.path.exists(path):
+        return path
+    from ..utils.objio import load_obj
+    from .watertight import watertight_from_mesh
+
+    raw_v, raw_f = load_obj(mesh_path)
+    verts, faces = watertight_from_mesh(raw_v, raw_f, res=watertight_res)
+    stem = os.path.splitext(os.path.basename(mesh_path))[0]
+    # crc32, not hash(): str hash is salted per process, which would make
+    # shard contents depend on which worker generated them
+    rng = np.random.default_rng(
+        seed ^ (zlib.crc32(stem.encode()) & 0x7FFFFFFF))
+    ex = make_example(verts, faces, n_surface, n_sdf, rng,
+                      occ_grid_res=occ_grid_res, with_image=with_image)
+    cat = os.path.basename(os.path.dirname(os.path.abspath(mesh_path)))
+    ex["category"] = np.str_(cat or "mesh")
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(tmp, **ex)
+    os.replace(tmp, path)
+    return path
+
+
+def build_dataset_from_meshes(
+    root: str,
+    mesh_dir: str,
+    n_surface: int = 20000,
+    n_sdf: int = 20000,
+    seed: int = 0,
+    watertight_res: int = 100,
+    num_workers: int = 8,
+    occ_grid_res: int = 64,
+    with_images: bool = False,
+) -> List[str]:
+    """Ingest a directory tree of OBJ meshes into cached npz shards; returns
+    the shard paths.
+
+    Each mesh is watertighted (voxelize at ``watertight_res`` -> boundary
+    surface -> laplacian smooth), then sampled as ``make_example`` samples
+    a procedural shape, from a generator seeded with ``seed`` xor the
+    crc32 of the file's stem.  Shards are cached per mesh file; the
+    category is the parent directory's name.
+    """
+    meshes = []
+    for dirpath, _, files in sorted(os.walk(mesh_dir)):
+        for f in sorted(files):
+            if f.lower().endswith(".obj"):
+                meshes.append(os.path.join(dirpath, f))
+    if not meshes:
+        raise FileNotFoundError(f"no .obj meshes under {mesh_dir}")
+    os.makedirs(root, exist_ok=True)
+    jobs = [(root, m, n_surface, n_sdf, seed, watertight_res, occ_grid_res,
+             with_images) for m in meshes]
+    pending = [j for j in jobs
+               if not os.path.exists(_mesh_shard_path(root, j[1]))]
+    if pending and num_workers > 1:
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        with ctx.Pool(min(num_workers, len(pending))) as pool:
+            pool.map(_build_mesh_shard, pending)
+    else:
+        for j in pending:
+            _build_mesh_shard(j)
+    return [_mesh_shard_path(root, m) for m in meshes]
+
+
 class ShapeDataset:
     """npz-backed dataset with static padding across the whole set."""
 
@@ -439,6 +528,9 @@ class ShapeDataset:
         }
         if "occ_grid" in ex:  # older caches may predate the grid oracle
             out["occ_grid"] = ex["occ_grid"]
+        if "imgs" in ex:  # the DISN image branch
+            out["imgs"] = ex["imgs"]
+            out["cam_matrix"] = ex["cam_matrix"]
         if "category" in ex:
             out["category"] = str(ex["category"])
         return out

@@ -2,7 +2,8 @@
 
 Per batch:
   * encode the input points (input noise from a generator seeded with
-    ``config.seed``, so every evaluation sees the same noise),
+    ``config.seed``, so every evaluation sees the same noise), or in DISN
+    mode the images (the decoders then read the batch's cameras),
   * decode the vertex positions over the grid,
   * full-grid occupancy probabilities in chunks of 100,000 tet centers,
     thresholded at ``occ_threshold``,
@@ -81,15 +82,17 @@ def sample_mesh_points(face_pos_bxfx3x3: torch.Tensor,
 
 
 @torch.no_grad()
-def decode_occ_full_grid(model, centers_soa, pyramid,
-                         chunk: int = 100_000) -> torch.Tensor:
+def decode_occ_full_grid(model, centers_soa, pyramid, chunk: int = 100_000,
+                         cam=None) -> torch.Tensor:
     """(B, T) occupancy logits at every tet center, decoded in chunks of
-    ``chunk`` centers; ``centers_soa`` = (cx, cy, cz), each (B, T)."""
+    ``chunk`` centers; ``centers_soa`` = (cx, cy, cz), each (B, T);
+    ``cam`` the DISN cameras."""
     t = centers_soa[0].shape[1]
     out = []
     for s in range(0, t, chunk):
         tile = torch.stack([c[:, s:s + chunk] for c in centers_soa], dim=-1)
-        out.append(model.decode_occ(tile, pyramid, train=False))
+        out.append(model.decode_occ(tile, pyramid, train=False,
+                                    cam_bx4x4=cam))
     return torch.cat(out, dim=1)
 
 
@@ -98,21 +101,27 @@ def _predict(model, batch, statics: GridStatics, config: TrainConfig,
     """(tet_pos, soa, logits) of the eval forward over the whole grid."""
     surface = batch["surface_points"]
     bsz = surface.shape[0]
-    inp = surface[:, : config.n_point]
-    if config.add_input_noise:
-        if noise is None:
-            gen = torch.Generator(device=inp.device).manual_seed(config.seed)
-            noise = torch.randn(inp.shape, generator=gen, device=inp.device)
-        inp = inp + config.input_noise * noise
+    cam = None
+    if config.use_disn:
+        inp, cam = batch["imgs"], batch["cam_matrix"]
+    else:
+        inp = surface[:, : config.n_point]
+        if config.add_input_noise:
+            if noise is None:
+                gen = torch.Generator(device=inp.device).manual_seed(
+                    config.seed)
+                noise = torch.randn(inp.shape, generator=gen,
+                                    device=inp.device)
+            inp = inp + config.input_noise * noise
     init_pos = statics.init_pos_nx3[None].expand(bsz, -1, -1)
     pos_mask = statics.pos_mask_nx3[None].expand(bsz, -1, -1)
     pyr_pos, pyr_occ = model.encode(inp, False)
     adj = LatticeAdjacency.from_degree(lattice_offsets, statics.vert_degree)
     _, tet_pos, _ = model.decode_pos(init_pos, pyr_pos, pos_mask, False, adj,
-                                     config.res)
+                                     config.res, cam_bx4x4=cam)
     soa = gather_tet_soa_lattice(tet_pos, config.res, tet_lattice)
     logits = decode_occ_full_grid(model, tet_centers_soa(soa), pyr_occ,
-                                  chunk=min(100_000, statics.n_tets))
+                                  chunk=min(100_000, statics.n_tets), cam=cam)
     return tet_pos, soa, logits
 
 

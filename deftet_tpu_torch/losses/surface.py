@@ -25,6 +25,9 @@ from ..ops.tri_distance import point_to_mesh_squared_distance
 from ..remat import saved
 
 EPS = 1e-10
+# the normal term's per-face fields are scattered and slice-summed in this
+# dtype, as the JAX package's are (bf16 whatever the network's precision)
+NORMAL_FIELD_DTYPE = torch.bfloat16
 
 
 def sample_surface_points(face_pos_bxfx3x3: torch.Tensor, u_raw: torch.Tensor,
@@ -99,7 +102,8 @@ def normal_smoothness_loss_compacted(work_pos_bxkx3x3, sel_idx_bxk,
     """Mean (1 - n_a . n_b) over edge-sharing pairs of the selected
     boundary faces; 0 when there is no pair.  Normals are computed on the
     selection only and scattered (unique slots) back to the face axis in
-    bf16; the per-edge sums run as lattice slices."""
+    ``NORMAL_FIELD_DTYPE`` (bf16); the per-edge sums run as lattice
+    slices."""
     b, f = boundary_mask_bxf.shape
     a = work_pos_bxkx3x3[:, :, 0, :]
     bb = work_pos_bxkx3x3[:, :, 1, :]
@@ -112,9 +116,9 @@ def normal_smoothness_loss_compacted(work_pos_bxkx3x3, sel_idx_bxk,
     vals = ws[..., None] * n
 
     def scatter(v):
-        return torch.zeros((b, f), dtype=torch.bfloat16,
+        return torch.zeros((b, f), dtype=NORMAL_FIELD_DTYPE,
                            device=v.device).scatter_add(
-            1, sel_idx_bxk, v.to(torch.bfloat16))
+            1, sel_idx_bxk, v.to(NORMAL_FIELD_DTYPE))
 
     rows = [scatter(sel_mask_bxk.detach())]
     rows += [scatter(vals[..., comp]) for comp in range(3)]

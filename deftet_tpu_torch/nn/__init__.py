@@ -1,5 +1,8 @@
-"""Networks: PVCNN encoders, GCN position decoder, occupancy MLP."""
+"""Networks: PVCNN encoders, GCN position decoder, occupancy MLP, the
+DISN image branch."""
 
+from .disn import DISNDecoder, DISNEncoder, VGG16Features
+from .disn_port import inject_vgg16, load_vgg16_state_dict
 from .gcn import (
     GCNMLPDecoder,
     GraphConv,
@@ -19,6 +22,8 @@ from .pvcnn import PVCNNEncoder, PVConv, SharedMLP
 __all__ = [
     "BatchNorm",
     "Conv3d",
+    "DISNDecoder",
+    "DISNEncoder",
     "DeformableTetNetwork",
     "Dense",
     "GCNMLPDecoder",
@@ -30,6 +35,9 @@ __all__ = [
     "PVCNNEncoder",
     "PVConv",
     "SharedMLP",
+    "VGG16Features",
+    "inject_vgg16",
+    "load_vgg16_state_dict",
     "sample_grid_features",
     "sample_grid_features_lattice",
 ]

@@ -32,10 +32,10 @@ from .statics import build_grid_statics, lattice_offsets, lattice_tet_offsets
 from .step import eval_step, forward_losses, make_optimizer, train_step
 
 
-def _check_supported(config: TrainConfig) -> None:
+def check_supported(config: TrainConfig) -> None:
+    """Raise NotImplementedError naming the options the port refuses."""
     unsupported = {
-        "use_disn": config.use_disn,
-        "use_lap_layer": config.use_lap_layer,
+        # asserted off by the JAX package too
         "use_graph_attention": config.use_graph_attention,
         "occ_source": config.occ_source not in ("grid", "check_sign"),
         "precision": config.precision not in ("bf16", "f32"),
@@ -50,7 +50,7 @@ class Engine:
 
     def __init__(self, config: TrainConfig, device="cuda",
                  experiment: Optional[Experiment] = None):
-        _check_supported(config)
+        check_supported(config)
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -74,6 +74,7 @@ class Engine:
         self.model = DeformableTetNetwork(
             blocks=config.parsed_blocks(),
             use_two_encoder=config.use_two_encoder,
+            use_lap_layer=config.use_lap_layer,
             scale_pos=config.scale_pos,
             scale_pvcnn=config.scale_pvcnn,
             train_def=config.train_def,
@@ -81,6 +82,11 @@ class Engine:
             pos_mlp_hidden=config.parsed_pos_mlp_hidden(),
             occ_mlp_hidden=config.parsed_occ_mlp_hidden(),
             dtype=torch.bfloat16 if config.precision == "bf16" else None,
+            use_disn=config.use_disn,
+            disn_image_size=config.disn_image_size,
+            disn_local_feature_size=config.disn_local_feature_size,
+            disn_encoding_dim=config.disn_encoding_dim,
+            disn_width=config.disn_width,
             generator=init_gen,
         ).to(self.device)
         if config.pretrain:

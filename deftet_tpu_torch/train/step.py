@@ -143,12 +143,19 @@ def forward_losses(
     b = surface.shape[0]
     device = surface.device
 
-    inp = surface[:, : config.n_point]
-    if config.add_input_noise:
-        noise = draws.get("noise")
-        if noise is None:
-            noise = torch.randn(inp.shape, generator=generator, device=device)
-        inp = inp + config.input_noise * noise
+    # the encoders' input: n_point surface points (+ noise), or in DISN
+    # mode the images, with their cameras for the decoders
+    cam = None
+    if config.use_disn:
+        inp, cam = batch["imgs"], batch["cam_matrix"]
+    else:
+        inp = surface[:, : config.n_point]
+        if config.add_input_noise:
+            noise = draws.get("noise")
+            if noise is None:
+                noise = torch.randn(inp.shape, generator=generator,
+                                    device=device)
+            inp = inp + config.input_noise * noise
 
     init_pos = statics.init_pos_nx3[None].expand(b, -1, -1)
     mask_src = (statics.pos_mask_nx3 if config.use_init_pos_mask
@@ -160,22 +167,22 @@ def forward_losses(
         center_idx = _center_subsample_idx(
             generator, n_tets, min(config.occ_sample, n_tets), device)
 
-    # segments: the encoders; the position decoder's probe and initial
-    # layer, each GCN block and its MLP head (model.decode_pos); the
-    # occupancy decoder; the losses.  Under remat.segmented (train_step
-    # with remat) the backward recomputes each on its own
+    # segments: the encoders; the position decoder's heads
+    # (model.decode_pos); the occupancy decoder; the losses.  Under
+    # remat.segmented (train_step with remat) the backward recomputes each
+    # on its own
     adj = LatticeAdjacency.from_degree(lattice_offsets, statics.vert_degree)
-    encoders = [model.encoder_pos] + (
-        [model.encoder_occ] if model.use_two_encoder else [])
     pyr_pos, pyr_occ = remat.segment(lambda: model.encode(inp, train),
-                                     *encoders)
+                                     *model.encoders())
     pred_delta, tet_pos, _ = model.decode_pos(
-        init_pos, pyr_pos, pos_mask, train, adj, config.res, generator)
+        init_pos, pyr_pos, pos_mask, train, adj, config.res, generator,
+        cam_bx4x4=cam)
 
     def occupancy_logits():
         sub_soa = gather_tet_soa(tet_pos, statics.tet_tx4[center_idx])
         sub_centers = torch.stack(tet_centers_soa(sub_soa), dim=-1)
-        return model.decode_occ(sub_centers, pyr_occ, train, generator)
+        return model.decode_occ(sub_centers, pyr_occ, train, generator,
+                                cam_bx4x4=cam)
 
     logits = remat.segment(occupancy_logits, model.decoder_occ)
     return remat.segment(lambda: _losses(

@@ -190,12 +190,16 @@ def test_cli_refuses_cuda_without_a_card_and_unported_flags(tmp_path,
     out = _run_cli(["train", "--res", "4", "--logdir", str(tmp_path)],
                    tmp_path)
     assert out.returncode != 0 and "CUDA" in out.stderr
-    for argv in (["train", "--device", "cpu", "--mesh_dir", "meshes"],
-                 ["train", "--device", "cpu", "--use_disn"],
+    # the one option the port refuses (the JAX package asserts it off), and
+    # the ported --mesh_dir / --use_disn, which still need a card
+    for argv in (["train", "--device", "cpu", "--use_graph_attention"],
+                 ["train", "--mesh_dir", "meshes", "--use_disn",
+                  "--use_lap_layer"],
                  ["render"]):
         with pytest.raises(SystemExit) as exit_info:
             sys.exit(cli.main(argv))
         assert exit_info.value.code != 0
         err = capsys.readouterr().err
-        assert ("CUDA" in err) if argv == ["render"] else ("not ported" in err)
+        assert ("not supported" in err) if "--use_graph_attention" in argv \
+            else ("CUDA" in err)
     assert not list(tmp_path.iterdir())  # refused before writing anything

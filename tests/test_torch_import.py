@@ -43,7 +43,8 @@ def test_port_imports_without_jax_or_cuda():
     expected = {"deftet_tpu_torch." + p for p in (
         "config", "convert", "data", "evals", "losses", "nn", "ops",
         "tetgrid", "train", "ops.stencil", "ops.nearest",
-        "ops.tri_distance", "train.engine", "train.step")}
+        "ops.tri_distance", "train.engine", "train.step", "nn.disn",
+        "nn.disn_port", "data.image_render", "data.watertight")}
     assert expected <= set(report["modules"])
     assert report["jax"] == []
     assert report["deftet_tpu"] == []

@@ -203,6 +203,33 @@ B_OUT = {
 }
 
 
+# With the lap layer (test_torch_lap) the refinement head is a second GCN
+# head of the same widths on the probe ++ the refined positions: its own
+# counts equal the first head's (positions, like the occupancy decoder's
+# centers, count as the pyramid's input).  Backward, the first head's
+# output also gets the cotangent of the lap head's input: 12 roundings to
+# the lap head's initial layer and its product into the positions, 13,
+# before the first head's own; so every count from the first head's
+# output down (the first head and the encoders) grows by 13.
+LAP_INPUT_B = 13
+
+
+def rounding_tables(lap: bool):
+    """(F_LOSS_POS, F_LOSS_OCC, F_BN_IN, B_OUT) of the test's network,
+    with or without the lap head."""
+    if not lap:
+        return F_LOSS_POS, F_LOSS_OCC, F_BN_IN, B_OUT
+    f_bn = dict(F_BN_IN)
+    f_bn["lap_decoder_pos.BatchNorm_0"] = F_BN_IN["decoder_pos.BatchNorm_0"]
+    b_out = {}
+    for key, r in B_OUT.items():
+        if key.startswith("decoder_pos."):
+            b_out["lap_" + key] = r
+        b_out[key] = r if key.startswith("decoder_occ.") else \
+            r + LAP_INPUT_B
+    return F_LOSS_POS, F_LOSS_OCC, f_bn, b_out
+
+
 def _lookup(table, module):
     """The entry of ``table`` whose key starts the module path (the two
     encoders share their entries)."""
@@ -210,10 +237,6 @@ def _lookup(table, module):
     hits = [k for k in table if module == k or module.startswith(k + ".")]
     assert len(hits) == 1, module
     return table[hits[0]]
-
-
-def _f_loss(module):
-    return F_LOSS_OCC if module.startswith("decoder_occ") else F_LOSS_POS
 
 
 def _lambda(n):
@@ -286,13 +309,18 @@ def _flat(tree):
 
 @pytest.fixture(scope="module")
 def bf16_reference():
+    return bf16_reference_for()
+
+
+def bf16_reference_for(**over):
     """The JAX package's bf16 step at res 4 (compiled without excess
     precision, so it rounds as written): terms, gradients, BatchNorm
     statistics, and the cotangent of every Dense / Conv output, read as
     the gradient of an exact zero added to it (which changes only the
-    order of a few float32 sums)."""
+    order of a few float32 sums); with the rounding counts of its
+    network."""
     jcfg, cfg = tp.configs(add_input_noise=False, occ_sample=10**6,
-                           precision="bf16", gcn_hidden="64,64")
+                           precision="bf16", gcn_hidden="64,64", **over)
     grid = jax_grid(jcfg.res)
     jstat = jax_statics.build_grid_statics(jcfg.res, grid=grid)
     model = tp.jax_model(jcfg, jstat)
@@ -348,6 +376,7 @@ def bf16_reference():
             variables["params"], zeros)
     return dict(
         cfg=cfg, variables=variables, batch=batch, draws=draws,
+        tables=rounding_tables(cfg.use_lap_layer),
         total=float(total), terms={k: float(v) for k, v in terms.items()},
         grads=_flat(grads), stats=_flat(mutated["batch_stats"]),
         cots={k: np.asarray(v.astype(jnp.float32)) for k, v in cots.items()})
@@ -362,8 +391,8 @@ def _port_bf16(ref, fault):
     assert engine.model.decoder_pos.initial.dtype == torch.bfloat16
     load_flax_variables(engine.model, tp.numpy_tree(ref["variables"]))
     if fault == "gcn_float32":
-        for name, module in engine.model.decoder_pos.named_modules():
-            if name.startswith("GraphConvBlock") and hasattr(module, "dtype"):
+        for name, module in engine.model.named_modules():
+            if "GraphConvBlock" in name and hasattr(module, "dtype"):
                 module.dtype = None
     cots, logits = {}, []
 
@@ -388,9 +417,10 @@ def _port_bf16(ref, fault):
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params.values(), grads)]
     got = tp.flax_layout(engine.model, dict(zip(params, grads)))
-    if fault == "zeroed_head_bias":
-        got["decoder_pos.head.bias"] = np.zeros_like(
-            got["decoder_pos.head.bias"])
+    if fault in ("zeroed_head_bias", "zeroed_lap_head_bias"):
+        key = ("lap_" if fault == "zeroed_lap_head_bias" else "") + \
+            "decoder_pos.head.bias"
+        got[key] = np.zeros_like(got[key])
     stats = tp.flax_layout(engine.model, dict(engine.model.named_buffers()))
     cots = {k.removesuffix(".bias"): v for k, v in
             tp.flax_layout(engine.model, cots).items()}
@@ -402,7 +432,11 @@ def _port_bf16(ref, fault):
 def _bf16_failures(ref, port, logit_threshold):
     """{what: (measured, bound)} for every value outside its bound."""
     total, terms, got, stats, cots, logit = port
+    f_loss_pos, f_loss_occ, f_bn_in, b_out = ref["tables"]
     bad = {}
+
+    def f_loss(module):
+        return f_loss_occ if module.startswith("decoder_occ") else f_loss_pos
 
     def hold(what, a, b, r, atol=0.0):
         err = float(np.linalg.norm(np.asarray(a) - np.asarray(b)))
@@ -416,13 +450,13 @@ def _bf16_failures(ref, port, logit_threshold):
     for name, value in ref["terms"].items():
         if name != "occ_iou":
             hold(name, terms[name], value,
-                 F_LOSS_OCC if name == "occ" else F_LOSS_POS, atol=1e-6)
-    hold("total", total, ref["total"], F_LOSS_POS, atol=1e-6)
+                 f_loss_occ if name == "occ" else f_loss_pos, atol=1e-6)
+    hold("total", total, ref["total"], f_loss_pos, atol=1e-6)
     # occupancy IoU counts logits above the threshold: only a logit within
     # the logits' tolerance of it can change sides; each flip moves the
     # intersection and the union by one
     near = int(((logit - logit_threshold).abs() <= _rounding_tol(
-        1, F_LOSS_OCC) * logit.abs().max()).sum())
+        1, f_loss_occ) * logit.abs().max()).sum())
     union = max(int((logit >= logit_threshold).sum()) - near, 1)
     if not abs(terms["occ_iou"] - ref["terms"]["occ_iou"]) <= \
             2 * near / union:
@@ -441,7 +475,7 @@ def _bf16_failures(ref, port, logit_threshold):
             continue
         g = cots[module]
         hold(f"cotangent of {module}", g, g_ref,
-             _f_loss(module) + _lookup(B_OUT, module))
+             f_loss(module) + _lookup(b_out, module))
         assert np.array_equal(_xla_bias_sum(g_ref), ref["grads"][key]), key
         g = g.reshape(-1, g.shape[-1]).astype(np.float64)
         s = g.sum(0)
@@ -458,12 +492,12 @@ def _bf16_failures(ref, port, logit_threshold):
             continue
         if not np.any(ref_leaf) and not np.any(got[key]):
             continue
-        hold(key, got[key], ref_leaf, _f_loss(module)
-             + _lookup(B_OUT, module) + (leaf == "kernel"))
+        hold(key, got[key], ref_leaf, f_loss(module)
+             + _lookup(b_out, module) + (leaf == "kernel"))
     # the running statistics: float32 means of bf16 activations
     for key, ref_leaf in ref["stats"].items():
         hold(key, stats[key], ref_leaf,
-             _lookup(F_BN_IN, key.rsplit(".", 1)[0]))
+             _lookup(f_bn_in, key.rsplit(".", 1)[0]))
     return bad
 
 

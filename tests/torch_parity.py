@@ -1,6 +1,7 @@
 """Shared set-up of the JAX-versus-port parity tests: the small network
-configuration, a JAX model with its flax variables, the port's model
-holding the same variables, and a batch built from a seed."""
+configuration (and the DISN branch's tiny one), a JAX model with its flax
+variables, the port's model holding the same variables, and a batch built
+from a seed."""
 
 from __future__ import annotations
 
@@ -40,6 +41,19 @@ def configs(**over):
     return jax_cfg, port
 
 
+# The DISN image branch at tests/test_disn.py's tiny width.
+DISN_TINY = dict(use_disn=True, disn_width=0.05, disn_encoding_dim=64,
+                 disn_image_size=32, disn_local_feature_size=16)
+
+
+def _disn_fields(cfg):
+    return dict(use_lap_layer=cfg.use_lap_layer, use_disn=cfg.use_disn,
+                disn_image_size=cfg.disn_image_size,
+                disn_local_feature_size=cfg.disn_local_feature_size,
+                disn_encoding_dim=cfg.disn_encoding_dim,
+                disn_width=cfg.disn_width)
+
+
 def jax_model(cfg, statics):
     """The JAX network of ``cfg``, computing in bfloat16 where
     ``cfg.precision`` is "bf16" (as the JAX engine builds it)."""
@@ -51,6 +65,7 @@ def jax_model(cfg, statics):
         gcn_hidden=cfg.parsed_gcn_hidden(),
         pos_mlp_hidden=cfg.parsed_pos_mlp_hidden(),
         occ_mlp_hidden=cfg.parsed_occ_mlp_hidden(),
+        **_disn_fields(cfg),
     )
 
 
@@ -59,7 +74,12 @@ def jax_variables(model, cfg, statics, seed=0):
     (the initial ones are all 0 / 1 and would hide a layout slip)."""
     init = jax.jit(lambda key, a, b, c: model.init(key, a, b, c,
                                                    train=False))
-    variables = init(jax.random.PRNGKey(seed), jnp.zeros((1, cfg.n_point, 3)),
+    if cfg.use_disn:
+        s = cfg.disn_image_size
+        dummy = jnp.zeros((1, s, s, 3))
+    else:
+        dummy = jnp.zeros((1, cfg.n_point, 3))
+    variables = init(jax.random.PRNGKey(seed), dummy,
                      statics.init_pos_nx3[None], jnp.zeros((1, 8, 3)))
     rng = np.random.default_rng(seed + 100)
 
@@ -85,7 +105,7 @@ def port_model(cfg: TrainConfig, variables) -> DeformableTetNetwork:
         gcn_hidden=cfg.parsed_gcn_hidden(),
         pos_mlp_hidden=cfg.parsed_pos_mlp_hidden(),
         occ_mlp_hidden=cfg.parsed_occ_mlp_hidden(),
-        generator=torch.Generator().manual_seed(0),
+        generator=torch.Generator().manual_seed(0), **_disn_fields(cfg),
     )
     load_flax_variables(model, numpy_tree(variables))
     return model
@@ -101,10 +121,20 @@ def batch(cfg, seed=0, occ_res=16):
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-0.4, 0.4, (cfg.batch_size, cfg.num_sample_points, 3))
     occ = occupancy_grid(verts, faces, occ_res)
-    return {
+    out = {
         "surface_points": pts.astype(np.float32),
         "occ_grid": np.tile(occ[None], (cfg.batch_size, 1, 1, 1)),
     }
+    if cfg.use_disn:
+        # uniform images (64 x 64, resized by the encoder) and the data
+        # pipeline's random cameras
+        from deftet_tpu.data.image_render import random_camera
+
+        out["imgs"] = rng.uniform(0, 1, (cfg.batch_size, 64, 64, 3)).astype(
+            np.float32)
+        out["cam_matrix"] = np.stack([random_camera(rng)
+                                      for _ in range(cfg.batch_size)])
+    return out
 
 
 def assert_tree_close(ref: dict, got: dict, rtol, atol, what="", prefix=""):
@@ -129,6 +159,8 @@ def flax_layout(model: torch.nn.Module, tensors: dict) -> dict:
         a = t.detach().cpu().numpy()
         if leaf == "weight" and a.ndim == 2:
             out[f"{mod}.kernel"] = a.T
+        elif leaf == "weight" and a.ndim == 4:
+            out[f"{mod}.kernel"] = a.transpose(2, 3, 1, 0)
         elif leaf == "weight" and a.ndim == 5:
             out[f"{mod}.kernel"] = a.transpose(2, 3, 4, 1, 0)
         elif leaf == "weight":
