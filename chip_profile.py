@@ -1,11 +1,14 @@
 """Where the time of the full-width train step goes on one NVIDIA GPU.
 
-    python3 chip_profile.py [main|lap|disn]
+    python3 chip_profile.py [main|lap|disn|uncompacted|gather]
 
 Builds bench.py's res-50 / batch-4 configuration through the port's
 ``Engine`` (as ``chip_smoke.py`` does; ``lap`` adds the lap layer,
 ``disn`` swaps in the DISN image branch at its default widths and feeds
-it chip_smoke's rendered images), runs two warm-up steps, then
+it chip_smoke's rendered images, ``uncompacted`` sets
+``max_boundary_faces=0``, ``gather`` runs on chip_smoke's res-25 grid
+split 1->8, a non-lattice grid of the same size, through
+``Engine(config, statics=...)``), runs two warm-up steps, then
 traces three steps with ``torch.profiler`` and prints, after the card's
 name and power limit, one JSON line:
 the wall time per step, the device busy share (sum of kernel time over
@@ -13,8 +16,8 @@ wall time), the device time and share of each hand-written kernel (K1,
 K2, K3) with its CUDA launches beside its wrapper calls per step (which
 must agree), and the device time by kernel name, largest first.  The full table goes to
 ``chiprun_out/profile_table.txt`` when that directory exists.
-With ``lap`` or ``disn`` the table's file name ends in ``_lap`` or
-``_disn``.
+With another configuration than ``main`` the table's file name ends in
+its name (``_lap``, ``_disn``, ...).
 """
 
 from __future__ import annotations
@@ -46,14 +49,22 @@ def main() -> int:
 
     which = sys.argv[1] if len(sys.argv) > 1 else "main"
     configs = {"main": bench_config, "lap": chip_smoke.lap_config,
-               "disn": chip_smoke.disn_config}
+               "disn": chip_smoke.disn_config,
+               "uncompacted": chip_smoke.uncompacted_config,
+               "gather": bench_config}
     if which not in configs:
         print(f"chip_profile: unknown configuration {which!r} "
               f"({', '.join(configs)})", file=sys.stderr)
         return 2
     header()
     config = configs[which]()
-    engine = Engine(config, device="cuda")
+    statics = None
+    if which == "gather":
+        from deftet_tpu_torch.train import build_grid_statics
+
+        grid, _ = chip_smoke.split_grid_50()
+        statics = build_grid_statics(config.res, grid=grid, device="cuda")
+    engine = Engine(config, device="cuda", statics=statics)
     batch = bench_batch(config)
     if config.use_disn:
         batch = chip_smoke.image_batch(batch, range(config.batch_size))

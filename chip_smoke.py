@@ -14,6 +14,10 @@ Phases, each reporting on lines of its own:
    parity_eval — the res-4 inference step, card against CPU;
    parity_lap_disn — two res-4 f32 steps, card against CPU, with the lap
    layer, with DISN at the tests' tiny width, and with both and remat;
+   parity_gather — two res-4 f32 steps, card against CPU, on a res-2 grid
+   split 1->8 (not a lattice, read from a .tet file) at the default
+   budget and at max_boundary_faces=0 and on the res-4 lattice at budget
+   0, then one inference step on the split grid;
    lap_step — bench.py's configuration with the lap layer through
    ``Engine``: one warm-up and five timed steps (18 K1 launches each),
    the lap head's K1 inputs kept apart, then K1 checked at them;
@@ -26,6 +30,15 @@ Phases, each reporting on lines of its own:
    timed steps, launch counts per kernel read around them;
    eval — that engine's full-inference evaluation at 100,000 points a
    side (validate, validate_inference, timed inference steps);
+   uncompacted_step — the main path's configuration at
+   max_boundary_faces=0 (the surface terms over every face: K2 over 1.5M
+   samples, K3 against every face under the boundary mask), the statics'
+   set-up with and without the edge arrays; then K2 and K3 checked at
+   its inputs; gather_step — the main path's configuration on the res-25
+   grid split 1->8 (750,000 tets, written and read as a .tet file)
+   through Engine(config, statics=...): the gather paths, no K1 launch;
+   gather_eval — one inference step on that grid at 100,000 points a
+   side; then K2 and K3 checked at the gather step's inputs;
 5. kernels — each kernel on the inputs the main path gave it, held
    against its plain version on the card and timed beside its bound and
    the nearest single PyTorch call (every K1 variant of the step, with
@@ -302,17 +315,20 @@ def bench_config():
                        per_face_samples=20)
 
 
+STEP_MEDIANS = {}  # label -> median step seconds of main_path's runs
+
+
 def main_path(config, device="cuda", occ_res=64,
               expected=LAUNCHES_PER_STEP, label="main", key_fn=variant_key,
-              batch=None):
-    """The train step through the port's Engine: one warm-up and
-    TIMED_STEPS timed steps, on bench.py's batch (or ``batch``, numpy),
-    each step's launches held to ``expected``."""
+              batch=None, statics=None):
+    """The train step through the port's Engine (on ``statics`` where
+    given): one warm-up and TIMED_STEPS timed steps, on bench.py's batch
+    (or ``batch``, numpy), each step's launches held to ``expected``."""
     from deftet_tpu_torch.ops import _cuda
     from deftet_tpu_torch.train import Engine
 
     t0 = time.perf_counter()
-    engine = Engine(config, device=device)
+    engine = Engine(config, device=device, statics=statics)
     t_engine = time.perf_counter() - t0
     b = config.batch_size
     batch = engine._prep_batch(batch if batch is not None else
@@ -343,6 +359,7 @@ def main_path(config, device="cuda", occ_res=64,
             if step:
                 step_s.append(dt)
     launches = {k: sum(c[k] for c in per_step) for k in expected}
+    STEP_MEDIANS[label] = statistics.median(step_s)
     say(label, config=f"res={config.res} batch={b} {config.precision}",
         engine_init_s=t_engine, steps=TIMED_STEPS,
         median_step_s=statistics.median(step_s), step_s=step_s,
@@ -650,24 +667,43 @@ def tri_region_counts(pts, tri, mask, n_active, chunk=512):
     return counts.tolist(), faces
 
 
-def check_tri_argmin(args, label="kernel_tri_argmin", reps=20):
+def check_tri_argmin(args, label="kernel_tri_argmin", reps=20,
+                     plain_points=None):
     """K3 on one call's inputs of a path against the plain version: the
     same index for every point (same region order and arithmetic, no FMA
     contraction, ties to the lowest index), hence the same distance at
-    it."""
+    it.  With ``plain_points`` the plain version (timed once, by that same
+    run) covers the first ``plain_points`` points of each batch element
+    only; the kernel still runs on every point."""
     from deftet_tpu_torch.ops import tri_distance
 
     pts, tri, mask, n_active = args
+    # the plain version's (points, faces) temporaries at most 2^26 floats
+    chunk = max(1, min(1024, (1 << 26) // max(tri.shape[1], 1)))
 
-    def d2_at(idx):
+    def d2_at(p, idx):
         sel = torch.gather(tri, 1, idx.long()[:, :, None, None].expand(
             -1, -1, 3, 3))
         return tri_distance.point_triangle_squared_distance(
-            pts, sel[..., 0, :], sel[..., 1, :], sel[..., 2, :])
+            p, sel[..., 0, :], sel[..., 1, :], sel[..., 2, :])
 
     i = tri_distance.tri_argmin(pts, tri, mask)
-    i_ref = tri_distance.tri_argmin_plain(pts, tri, mask, n_active)
-    d, d_ref = d2_at(i), d2_at(i_ref)
+    if plain_points is None:
+        i_ref = tri_distance.tri_argmin_plain(pts, tri, mask, n_active,
+                                              chunk)
+        plain_pts = pts
+    else:
+        plain_pts = pts[:, :plain_points].contiguous()
+        i = i[:, :plain_points]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        i_ref = tri_distance.tri_argmin_plain(plain_pts, tri, mask, n_active,
+                                              chunk)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+    d, d_ref = d2_at(plain_pts, i), d2_at(plain_pts, i_ref)
     err = float((d - d_ref).abs().max())
     n_diff = int((i != i_ref).sum())
     if n_diff or err:
@@ -676,9 +712,11 @@ def check_tri_argmin(args, label="kernel_tri_argmin", reps=20):
             f"{err}")
 
     ms = cuda_ms(lambda: tri_distance.tri_argmin(pts, tri, mask), reps)
-    plain_ms = cuda_ms(
-        lambda: tri_distance.tri_argmin_plain(pts, tri, mask, n_active),
-        max(1, reps // 10))
+    if plain_points is None:
+        plain_ms = cuda_ms(
+            lambda: tri_distance.tri_argmin_plain(pts, tri, mask, n_active,
+                                                  chunk),
+            max(1, reps // 10))
     b, p, _ = pts.shape
     counts, faces = tri_region_counts(pts, tri, mask, n_active)
     pairs = sum(counts)
@@ -690,13 +728,16 @@ def check_tri_argmin(args, label="kernel_tri_argmin", reps=20):
         n_active=n_active.tolist(), pairs=pairs, max_abs_err=err,
         index_differences=n_diff,
         region_pairs=dict(zip(TRI_REGION_FLOPS, counts)),
-        flops_per_pair=n_flops / pairs,
+        flops_per_pair=n_flops / pairs, plain_points=plain_points,
         # built with -fmad=false: no instruction does two flops, so the
         # float32 ceiling is half the peak the bound assumes
         no_fma_ceiling_ms=2 * bms)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=None, max_abs_err=err, no_fma_ceiling_ms=2 * bms,
-                shape=f"points {list(pts.shape)} faces {list(tri.shape)} f32")
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               library_ms=None, max_abs_err=err, no_fma_ceiling_ms=2 * bms,
+               shape=f"points {list(pts.shape)} faces {list(tri.shape)} f32")
+    if plain_points is not None:
+        out["plain_points"] = plain_points
+    return out
 
 
 def check_nearest_edge_cases(uniform, device="cuda"):
@@ -922,28 +963,32 @@ def on_device(draws, device):
     return out
 
 
-def step_draws(cfg, rng, batch_size):
+def step_draws(cfg, rng, batch_size, n_faces=None):
     """One microbatch's injected draws (numpy): input noise, the center
-    subsample and the chamfer barycentrics."""
-    bary = (batch_size, cfg.resolved_max_boundary_faces(),
-            cfg.per_face_samples, 1)
+    subsample and the chamfer barycentrics, over the compacted working set
+    or, at budget 0 on a grid of ``n_faces`` faces, over every face."""
+    k = cfg.resolved_max_boundary_faces() or n_faces
+    per_face = cfg.per_face_samples
+    if cfg.chamfer_samples_cap > 0:
+        per_face = max(1, min(per_face, cfg.chamfer_samples_cap // k))
+    bary = (batch_size, k, per_face, 1)
     return {"noise": rng.normal(size=(batch_size, cfg.n_point, 3)),
             "center_idx": rng.integers(0, 6 * cfg.res**3, cfg.occ_sample),
             "bary_u": rng.uniform(size=bary),
             "bary_v": rng.uniform(size=bary)}
 
 
-def train_runs(cfg, batch, draws, devices):
-    """(initial state, {device: run}): on each device an engine from the
-    first device's initial parameters takes one train step per entry of
-    ``draws`` (a dict, or a list of one per microbatch); a run holds the
-    terms and BatchNorm statistics after each step, each parameter's
-    update and Adam's first moment."""
+def train_runs(cfg, batch, draws, devices, statics=None):
+    """(initial state, {device: run}): on each device an engine (on
+    ``statics`` where given) from the first device's initial parameters
+    takes one train step per entry of ``draws`` (a dict, or a list of one
+    per microbatch); a run holds the terms and BatchNorm statistics after
+    each step, each parameter's update and Adam's first moment."""
     from deftet_tpu_torch.train import Engine
 
     state, runs = None, {}
     for device in devices:
-        engine = Engine(cfg, device=device)
+        engine = Engine(cfg, device=device, statics=statics)
         if state is None:
             state = {n: v.clone() for n, v in
                      engine.model.state_dict().items()}
@@ -1379,6 +1424,409 @@ def check_disn_kernels(inputs, per_variant):
         "tri_argmin": check_tri_argmin(inputs[("tri_argmin",)],
                                        label="kernel_tri_argmin_disn"),
     }
+
+
+# ------------- general grids (the gather paths) and the uncompacted path
+# launches per full-width step on a general grid: no stencil (the GCN and
+# the Laplacian take the padded gather), chamfer and the analytic term once
+GATHER_LAUNCHES = {"stencil": 0, "nearest": 1, "tri_argmin": 1,
+                   "raster_hit": 0}
+GATHER_DIR = ROOT / "build" / "smoke_gather"
+
+
+def uncompacted_config():
+    """bench.py's configuration with ``max_boundary_faces=0``: the surface
+    terms over every interior face (the reference's own semantics)."""
+    cfg = bench_config()
+    cfg.max_boundary_faces = 0
+    return cfg
+
+
+def statics_seconds(res=50):
+    """Seconds to build the res-``res`` lattice statics on the card with
+    and without the face-derived gather tables (which only the
+    uncompacted normal term reads)."""
+    from deftet_tpu_torch.train import build_grid_statics
+
+    out = {}
+    for face_arrays in (False, True):
+        t = time.perf_counter()
+        build_grid_statics(res, device=DEVICE, face_arrays=face_arrays)
+        torch.cuda.synchronize()
+        out["with_face_arrays" if face_arrays else "without_face_arrays"] = (
+            time.perf_counter() - t)
+    return out
+
+
+def uncompacted_step():
+    """The res-50 / batch-4 bf16 lattice step at ``max_boundary_faces=0``
+    through Engine: one warm-up and five timed steps (K1 10, K2 1, K3 1
+    launches each), the statics' set-up seconds with and without the edge
+    arrays; returns the kernels' inputs for their checks."""
+    setup_s = statics_seconds()
+    inputs, launches, _, engine = main_path(
+        uncompacted_config(), device=DEVICE, label="uncompacted_step")
+    say("uncompacted_setup", statics_s=setup_s,
+        n_faces=int(engine.statics.face_fx3.shape[0]),
+        lattice_median_step_s=STEP_MEDIANS.get("main"))
+    del engine
+    torch.cuda.empty_cache()
+    return inputs, launches
+
+
+def split_grid_50():
+    """``build_tet_grid(25)`` split 1->8 by ``subdivide_tets`` (132,651
+    vertices, 750,000 tets: the main path's size, not a lattice), written
+    by ``save_tet_file`` and read back by ``read_tet_file``, with the
+    seconds of each."""
+    from deftet_tpu_torch.tetgrid import (TetGrid, build_tet_grid,
+                                          read_tet_file, save_tet_file,
+                                          subdivide_tets)
+
+    t0 = time.perf_counter()
+    g = build_tet_grid(25)
+    points, _, tets = subdivide_tets(g.tets, g.vertices)
+    GATHER_DIR.mkdir(parents=True, exist_ok=True)
+    path = GATHER_DIR / "split25.tet"
+    t1 = time.perf_counter()
+    save_tet_file(TetGrid(vertices=points, tets=tets,
+                          interior_mask=np.zeros_like(points)), str(path))
+    t2 = time.perf_counter()
+    grid = read_tet_file(str(path))
+    t3 = time.perf_counter()
+    path.unlink()
+    return grid, {"build_and_split_s": t1 - t0, "save_tet_file_s": t2 - t1,
+                  "read_tet_file_s": t3 - t2}
+
+
+def gather_step():
+    """bench.py's configuration on the split grid (not a lattice) through
+    ``Engine(config, statics=build_grid_statics(50, grid=...))``: one
+    warm-up and five timed steps, no K1 launch (the padded gathers), K2
+    and K3 once each; the set-up seconds, and the step beside the lattice
+    step's at the same widths.  Returns the kernels' inputs and the
+    engine (for gather_eval)."""
+    from deftet_tpu_torch.train import build_grid_statics
+
+    grid, io_s = split_grid_50()
+    t = time.perf_counter()
+    statics = build_grid_statics(50, grid=grid, device=DEVICE)
+    torch.cuda.synchronize()
+    statics_s = time.perf_counter() - t
+    inputs, launches, _, engine = main_path(
+        bench_config(), device=DEVICE, expected=GATHER_LAUNCHES,
+        label="gather_step", statics=statics)
+    st = engine.statics
+    say("gather_setup", **io_s, build_grid_statics_s=statics_s,
+        vertices=st.n_vertices, tets=st.n_tets,
+        faces=int(st.face_fx3.shape[0]),
+        adjacency_width=int(st.vert_adj_idx.shape[1]),
+        vertex_tet_width=int(st.vert_tet_inc_idx.shape[1]),
+        gather_median_step_s=STEP_MEDIANS["gather_step"],
+        lattice_median_step_s=STEP_MEDIANS.get("main"))
+    if engine.lattice_offsets is not None or st.n_tets != 750_000:
+        raise AssertionError("gather_step did not run a non-lattice grid")
+    gather_determinism(st)
+    return inputs, launches, engine
+
+
+def gather_determinism(st):
+    """``incidence_gather`` (the tet corners of every tet) and
+    ``edge_face_sum`` (bf16 per-face fields) backpropagate by gathers: on
+    the card two backward passes of the same cotangent give the same
+    bits."""
+    from deftet_tpu_torch.ops.geometry import edge_face_sum, incidence_gather
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn((4, st.n_vertices), generator=gen).to(DEVICE)
+    flat = st.tet_tx4.t().reshape(-1)
+    cot = torch.randn((4, flat.shape[0]), generator=gen).to(DEVICE)
+    fields = torch.randn((16, st.face_fx3.shape[0]), generator=gen).to(
+        DEVICE, torch.bfloat16)
+    cot_e = torch.randn((16, st.edge_face_idx.shape[0]), generator=gen).to(
+        DEVICE)
+    grads = []
+    for _ in range(2):
+        xg = x.clone().requires_grad_()
+        fg = fields.clone().requires_grad_()
+        out = incidence_gather(xg, flat, st.vert_tet_inc_idx,
+                               st.vert_tet_inc_mask)
+        sums = edge_face_sum(fg, st.edge_face_idx, st.edge_face_mask,
+                             st.face_edge_ids)
+        grads.append(torch.autograd.grad([out, sums], [xg, fg],
+                                         [cot, cot_e]))
+    same = [torch.equal(a, b) for a, b in zip(*grads)]
+    say("gather_determinism", incidence_gather_same=same[0],
+        edge_face_sum_same=same[1])
+    if not all(same):
+        raise AssertionError("gather backward differs between two runs")
+
+
+def gather_eval(engine, data):
+    """One inference step of the gather engine at 100,000 points a side on
+    ``data`` (eval_data): a first call, then a timed one with its peak and
+    launches, and ``points_in_tets_soa`` alone.  Trains on the batch until
+    there is a predicted surface (at most 40 steps, and says so)."""
+    from deftet_tpu_torch.evals import harness
+    from deftet_tpu_torch.ops import _cuda, point_tet
+
+    cfg = engine.config
+    cfg.eval_points = EVAL_POINTS
+    prepped = engine._prep_batch(data[0])
+    infer = engine.inference_step()
+
+    def run():
+        gen = torch.Generator(device=engine.device).manual_seed(cfg.seed)
+        return {n: float(v) for n, v in infer(prepped, engine.statics,
+                                             gen).items()}
+
+    trained = 0
+    first = time.perf_counter()
+    out = run()
+    first_s = time.perf_counter() - first
+    while out["n_boundary"] <= 0 and trained < 40:
+        engine.train_step(prepped)
+        trained += 1
+        out = run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t
+    launches = dict(_cuda.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        _, soa, _ = harness._predict(engine.model, prepped, engine.statics,
+                                     cfg, None, None)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        point_tet.points_in_tets_soa(soa, prepped["sdf_points"])
+        torch.cuda.synchronize()
+        pit_s = time.perf_counter() - t
+    say("gather_eval", first_s=first_s, seconds=infer_s,
+        trained_for_surface=trained, metrics=out, launches=launches,
+        max_memory_allocated_bytes=peak, points_in_tets_s=pit_s,
+        points_in_tets_share=pit_s / infer_s)
+    bad = [n for n, v in out.items() if not np.isfinite(v)]
+    if bad or out["n_boundary"] <= 0:
+        raise AssertionError(f"gather_eval: non-finite {bad} or no surface")
+    if launches["stencil"] or not (launches["nearest"]
+                                   and launches["tri_argmin"]):
+        raise AssertionError(f"gather_eval launched {launches}")
+
+
+def check_uncompacted_kernels(inputs):
+    """K2 and K3 at the uncompacted step's shapes, exact against their
+    plain versions: chamfer over 4 x (1 sample on each of the 1.5M face
+    slots) against 5,000 points, and the analytic term's 4 x 5,000 points
+    against every face under the boundary mask (the plain version over
+    the first 1,000 points of each batch element)."""
+    return {
+        "nearest": check_nearest(inputs[("nearest",)],
+                                 label="kernel_nearest_uncompacted",
+                                 reps=10),
+        "tri_argmin": check_tri_argmin(inputs[("tri_argmin",)],
+                                       label="kernel_tri_uncompacted",
+                                       reps=5, plain_points=1000),
+    }
+
+
+def check_gather_kernels(inputs):
+    """K2 and K3 at the gather step's inputs (the main path's shapes on
+    the split grid), exact against their plain versions."""
+    return {
+        "nearest": check_nearest(inputs[("nearest",)],
+                                 label="kernel_nearest_gather"),
+        "tri_argmin": check_tri_argmin(inputs[("tri_argmin",)],
+                                       label="kernel_tri_gather"),
+    }
+
+
+def small_split_statics():
+    """(statics on the CPU, faces) of the res-2 grid split 1->8, through a
+    ``.tet`` file: a non-lattice grid of 384 tets for the res-4 parity."""
+    from deftet_tpu_torch.tetgrid import (TetGrid, build_tet_grid,
+                                          read_tet_file, save_tet_file,
+                                          subdivide_tets)
+    from deftet_tpu_torch.train import build_grid_statics
+
+    g = build_tet_grid(2)
+    points, _, tets = subdivide_tets(g.tets, g.vertices)
+    GATHER_DIR.mkdir(parents=True, exist_ok=True)
+    path = GATHER_DIR / "split2.tet"
+    save_tet_file(TetGrid(vertices=points, tets=tets,
+                          interior_mask=np.zeros_like(points)), str(path))
+    statics = build_grid_statics(4, grid=read_tet_file(str(path)))
+    path.unlink()
+    return statics
+
+
+def forward_grads(cfg, batch, draws, devices, statics=None):
+    """{device: (terms, gradients)} of one forward_losses with gradients
+    from the same initial parameters and injected draws on each device."""
+    from deftet_tpu_torch.train import Engine
+
+    state, out = None, {}
+    for device in devices:
+        engine = Engine(cfg, device=device, statics=statics)
+        if state is None:
+            state = {n: v.clone() for n, v in
+                     engine.model.state_dict().items()}
+        engine.model.load_state_dict(state)
+        total, terms = engine.forward_losses(
+            engine._prep_batch(batch), train=True,
+            draws=on_device(draws, device))
+        params = dict(engine.model.named_parameters())
+        grads = torch.autograd.grad(total, list(params.values()),
+                                    allow_unused=True)
+        out[device] = (
+            {n: float(v.detach()) for n, v in terms.items()}
+            | {"total": float(total.detach())},
+            {n: (torch.zeros_like(p) if g is None else g).detach().cpu()
+             for (n, p), g in zip(params.items(), grads)})
+    return out
+
+
+def parity_gather(devices=("cpu", DEVICE)):
+    """Card against CPU at res 4 in float32 (small_config) from the same
+    parameters and injected draws, on the split res-2 grid at the default
+    budget and at budget 0 and on the res-4 lattice at budget 0: one
+    forward with gradients (terms rtol 1e-4 / atol 1e-6, every gradient
+    rtol 1e-3 / atol 1e-5, as ``parity`` and the CPU tests hold them),
+    then two train steps at parity_train's tolerances for the terms,
+    Adam's first moment (rtol 1e-3 / atol 1e-6), every update within 3 lr
+    a step and the BatchNorm statistics (rtol 1e-4 / atol 1e-6, the second
+    step's running means within 2 lr); then one inference step on the
+    split grid, every metric rtol 1e-4 / atol 1e-6.  parity_train's
+    entrywise hold of the live updates (first moment above 1e-6) is
+    reported, not held: here entries along a BatchNorm's null direction
+    (the GCN block's biases, whose exact gradient is 0) carry gradients
+    up to the 1e-5 noise that the gradient check allows, and Adam turns
+    that into an O(lr) update difference.  The normal term's per-face
+    fields run in float32 on both devices, as in parity_lap_disn (in bf16
+    a field within the devices' float32 difference of a rounding boundary
+    flips)."""
+    from deftet_tpu_torch.losses import surface
+    from deftet_tpu_torch.train import Engine
+
+    split = small_split_statics()
+    configs = {
+        "split_default": (small_config(), split),
+        "split_budget0": (small_config(max_boundary_faces=0), split),
+        "lattice_budget0": (small_config(max_boundary_faces=0), None),
+    }
+    field_dtype = surface.NORMAL_FIELD_DTYPE
+    surface.NORMAL_FIELD_DTYPE = torch.float32
+    report = {}
+    try:
+        for name, (cfg, statics) in configs.items():
+            rng = np.random.default_rng(15)
+            n_faces = (12 * cfg.res**3 if statics is None
+                       else int(statics.face_fx3.shape[0]))
+            draws = [step_draws(cfg, rng, cfg.batch_size, n_faces)
+                     for _ in range(2)]
+            batch = bench_batch(cfg, level=1, occ_res=16)
+            fwd = forward_grads(cfg, batch, draws[0], devices, statics)
+            (t_cpu, g_cpu), (t_gpu, g_gpu) = (fwd[d] for d in devices)
+            _, runs = train_runs(cfg, batch, draws, devices, statics)
+            cpu, gpu = (runs[d] for d in devices)
+            noise = 3 * cfg.lr * len(draws)
+            live = {n: cpu["mu"][n].abs() > 1e-6 for n in cpu["mu"]}
+            (s1, s2), (c1, c2) = gpu["stats"], cpu["stats"]
+            worst = {
+                "forward_terms": max(ratio(t_gpu[n], v, 1e-4, 1e-6)
+                                     for n, v in t_cpu.items()),
+                "gradients": max(ratio(g_gpu[n], g, 1e-3, 1e-5)
+                                 for n, g in g_cpu.items()),
+                "terms": max(ratio(g[n], c[n], 1e-4, 1e-6)
+                             for g, c in zip(gpu["terms"], cpu["terms"])
+                             for n in c),
+                "mu": max(ratio(gpu["mu"][n], v, 1e-3, 1e-6)
+                          for n, v in cpu["mu"].items()),
+                "update_noise": max(
+                    float((gpu["update"][n] - v).abs().max()) / noise
+                    for n, v in cpu["update"].items()),
+                "batch_stats_step1": max(ratio(s1[n], v, 1e-4, 1e-6)
+                                         for n, v in c1.items()),
+                "running_var_step2": max(ratio(s2[n], v, 1e-4, 1e-6)
+                                         for n, v in c2.items()
+                                         if "var" in n),
+                "running_mean_step2": max(ratio(s2[n], v, 0.0, 2 * cfg.lr)
+                                          for n, v in c2.items()
+                                          if "mean" in n),
+            }
+            entrywise = {n: ratio(gpu["update"][n][live[n]], v[live[n]],
+                                  1e-3, 1e-7)
+                         for n, v in cpu["update"].items()}
+            leaf = max(entrywise, key=entrywise.get)
+            diff = (gpu["update"][leaf] - cpu["update"][leaf]).abs()
+            at = int(torch.argmax(diff.masked_fill(~live[leaf], 0)))
+            report[name] = dict(
+                worst_ratios=worst, terms_cuda=gpu["terms"],
+                terms_cpu=cpu["terms"],
+                live_update_entrywise={
+                    "ratio": entrywise[leaf], "leaf": leaf,
+                    "mu_cpu": float(cpu["mu"][leaf].flatten()[at]),
+                    "mu_cuda": float(gpu["mu"][leaf].flatten()[at]),
+                    "grad_cpu": float(g_cpu[leaf].flatten()[at]),
+                    "grad_cuda": float(g_gpu[leaf].flatten()[at]),
+                    "update_cpu": float(cpu["update"][leaf].flatten()[at]),
+                    "update_cuda": float(gpu["update"][leaf].flatten()[at])})
+
+        # one inference step on the split grid, card against CPU
+        n_res = 300
+        cfg = small_config(eval_points=n_res)
+        batch = eval_batch((1, 2), 256, 400, level=1, occ_res=16)
+        rng = np.random.default_rng(16)
+        k = cfg.resolved_max_boundary_faces()
+        n_gt = int(batch["n_faces"].min())
+
+        def sampler(n_faces):
+            return (rng.integers(0, n_faces, (2, n_res)),
+                    rng.uniform(size=(2, n_res, 1)),
+                    rng.uniform(size=(2, n_res, 1)))
+
+        draws = {"noise": rng.normal(size=(2, cfg.n_point, 3)),
+                 "pred": sampler(k), "gt": sampler(n_gt)}
+        state, out = None, {}
+        for device in devices:
+            engine = Engine(cfg, device=device, statics=split)
+            if state is None:
+                state = {n: v.clone() for n, v in
+                         engine.model.state_dict().items()}
+                # the threshold in the widest gap above the median
+                # probability: a surface, and no probability near it
+                from deftet_tpu_torch.evals import harness
+
+                d = on_device(draws, device)
+                _, _, logits = harness._predict(
+                    engine.model, engine._prep_batch(batch), engine.statics,
+                    cfg, None, None, noise=d["noise"])
+                probs = np.sort(torch.sigmoid(logits).cpu().numpy()
+                                .reshape(-1))
+                half = len(probs) // 2
+                i = half + int(np.argmax(np.diff(probs[half:])))
+                cfg.occ_threshold = float((probs[i] + probs[i + 1]) / 2)
+            engine.model.load_state_dict(state)
+            out[device] = {n: float(v) for n, v in engine.inference_step()(
+                engine._prep_batch(batch), engine.statics,
+                draws=on_device(draws, device)).items()}
+        cpu, gpu = (out[d] for d in devices)
+        report["split_inference"] = dict(
+            worst_ratios={"metrics": max(ratio(gpu[n], v, 1e-4, 1e-6)
+                                         for n, v in cpu.items())},
+            metrics_cuda=gpu, metrics_cpu=cpu)
+        if cpu["n_boundary"] <= 0:
+            raise AssertionError("parity_gather: no predicted surface")
+    finally:
+        surface.NORMAL_FIELD_DTYPE = field_dtype
+    say("parity_gather", **report)
+    bad = {n: r["worst_ratios"] for n, r in report.items()
+           if not all(v <= 1.0 for v in r["worst_ratios"].values())}
+    if bad:
+        raise AssertionError(f"gather parity failed: {bad}")
 
 
 EVAL_POINTS = 100_000  # deftet-eval's default (deftet_tpu/cli.py:154)
@@ -2401,7 +2849,7 @@ def kernel_entry(name, res, launches, path):
         "shape": res["shape"], "path": path,
     }
     for extra in ("step_ms", "no_fma_ceiling_ms", "launches_per_run",
-                  "pairs", "hits", "insertion_work"):
+                  "pairs", "hits", "insertion_work", "plain_points"):
         if extra in res:
             entry[extra] = res[extra]
     return entry
@@ -2432,6 +2880,7 @@ def main() -> int:
     timed("parity_train", parity_train)
     timed("parity_eval", parity_eval)
     timed("parity_lap_disn", parity_lap_disn)
+    timed("parity_gather", parity_gather)
     lap_inputs, lap_launches, lap_per_variant = timed("lap_step", lap_step)
     lap_kernels = timed("lap_kernels", check_lap_kernels, lap_inputs,
                         lap_per_variant)
@@ -2455,6 +2904,16 @@ def main() -> int:
     })
     nearest_eval = timed("kernel_nearest_eval", check_nearest_eval)
     eval_kernels = timed("eval_kernels", check_eval_kernels, ev)
+    unc_inputs, unc_launches = timed("uncompacted_step", uncompacted_step)
+    unc_kernels = timed("uncompacted_kernels", check_uncompacted_kernels,
+                        unc_inputs)
+    del unc_inputs
+    g_inputs, g_launches, g_engine = timed("gather_step", gather_step)
+    timed("gather_eval", gather_eval, g_engine, ev_data)
+    del g_engine
+    torch.cuda.empty_cache()
+    g_kernels = timed("gather_kernels", check_gather_kernels, g_inputs)
+    del g_inputs
     paper_inputs, paper_per_step, paper_rows = timed("paper_step", paper_step)
     paper_kernels = timed("paper_kernels", check_paper_kernels, paper_inputs,
                           paper_per_step)
@@ -2511,6 +2970,19 @@ def main() -> int:
         kernels.append(kernel_entry("tri_argmin", res,
                                     ev["launches"]["tri_argmin"],
                                     f"eval: Hausdorff {side}"))
+    for name, res in unc_kernels.items():
+        kernels.append(kernel_entry(
+            name, res, unc_launches[name],
+            "uncompacted_step (res 50, batch 4, bf16, max_boundary_faces 0):"
+            + (" chamfer, 1 sample on each of the 12 r^3 face slots"
+               if name == "nearest" else " the analytic term against every "
+               "face under the boundary mask; the plain version on the "
+               "first 1,000 points of each batch element")))
+    for name, res in g_kernels.items():
+        kernels.append(kernel_entry(
+            name, res, g_launches[name],
+            "gather_step (res-25 grid split 1->8 from a .tet file, 750,000 "
+            "tets, batch 4, bf16): no K1 launch"))
     for path, res, n in (
             ("render: training step, res 40, 25 tiles of 16x16 (first "
              "step)", raster_rows["train"], r_counts["train"]),

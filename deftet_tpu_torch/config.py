@@ -89,7 +89,8 @@ class TrainConfig:
     chamfer_samples_cap: int = 200_000
     # -1 = auto (8 r^2, capped at the face count).  When the boundary
     # overflows the budget the FIRST k faces in class-major face order are
-    # kept (not a uniform sample), as in the JAX package.
+    # kept (not a uniform sample), as in the JAX package.  0 = all
+    # interior faces (no compaction), the reference's own semantics.
     max_boundary_faces: int = -1
 
     def resolved_max_boundary_faces(self) -> int:

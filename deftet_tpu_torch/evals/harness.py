@@ -8,7 +8,8 @@ Per batch:
   * full-grid occupancy probabilities in chunks of 100,000 tet centers,
     thresholded at ``occ_threshold``,
   * the predicted surface: boundary faces of the predicted occupancy, the
-    first ``8 r^2`` of them kept (``boundary_overflow`` counts the rest),
+    first ``8 r^2`` of them kept (``boundary_overflow`` counts the rest;
+    every one at ``max_boundary_faces=0``),
   * metrics: occupancy IoU on the SDF sample points (each point reads its
     containing tet), the IoU sweep over probability thresholds 0.1-0.5 and
     its maximum ``val_iou_max``, F-score (plain and extended), Chamfer and
@@ -23,19 +24,24 @@ the same numbers.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import TYPE_CHECKING, Dict
 
 import torch
 
 from ..config import TrainConfig
-from ..losses.geometry import gather_tet_soa_lattice, tet_centers_soa
+from ..losses.geometry import (
+    gather_tet_soa,
+    gather_tet_soa_lattice,
+    tet_centers_soa,
+)
 from ..losses.surface import (
     boundary_faces_from_occupancy,
     select_boundary_subset,
 )
-from ..nn.gcn import LatticeAdjacency
+from ..nn.gcn import LatticeAdjacency, VertexAdjacency
 from ..ops.point_tet import paste_occupancy, points_in_tets_soa
-from ..train.statics import GridStatics
+if TYPE_CHECKING:  # train.step imports this module
+    from ..train.statics import GridStatics
 from .metrics import (
     chamfer_distance,
     chamfer_distance_l1,
@@ -96,6 +102,40 @@ def decode_occ_full_grid(model, centers_soa, pyramid, chunk: int = 100_000,
     return torch.cat(out, dim=1)
 
 
+def adjacency_for(statics: GridStatics, config: TrainConfig,
+                  lattice_offsets):
+    """(adjacency, lattice_res): the stencil and the separable probe when
+    the regular grid's offsets are given, else the padded gather and the
+    per-vertex probe.  The one dispatch train and eval share."""
+    if lattice_offsets is not None:
+        return (LatticeAdjacency.from_degree(lattice_offsets,
+                                             statics.vert_degree),
+                config.res)
+    return VertexAdjacency(idx=statics.vert_adj_idx,
+                           mask=statics.vert_adj_mask,
+                           degree=statics.vert_degree), 0
+
+
+def tet_soa_for(tet_pos, statics: GridStatics, config: TrainConfig,
+                tet_lattice):
+    """Every tet's corners in SoA form: lattice slices when the type-major
+    offsets are given, else incidence gathers."""
+    if tet_lattice is not None:
+        return gather_tet_soa_lattice(tet_pos, config.res, tet_lattice)
+    return gather_tet_soa(
+        tet_pos, statics.tet_tx4,
+        vert_tet_inc=(statics.vert_tet_inc_idx, statics.vert_tet_inc_mask))
+
+
+def face_lattice_for(statics: GridStatics, face_lattice):
+    """``face_lattice`` when the statics' faces are in its class-major
+    layout, else None (the gather paths)."""
+    if face_lattice is not None and \
+            statics.face_fx3.shape[0] == 12 * face_lattice.res**3:
+        return face_lattice
+    return None
+
+
 def _predict(model, batch, statics: GridStatics, config: TrainConfig,
              lattice_offsets, tet_lattice, noise=None):
     """(tet_pos, soa, logits) of the eval forward over the whole grid."""
@@ -116,10 +156,10 @@ def _predict(model, batch, statics: GridStatics, config: TrainConfig,
     init_pos = statics.init_pos_nx3[None].expand(bsz, -1, -1)
     pos_mask = statics.pos_mask_nx3[None].expand(bsz, -1, -1)
     pyr_pos, pyr_occ = model.encode(inp, False)
-    adj = LatticeAdjacency.from_degree(lattice_offsets, statics.vert_degree)
+    adj, lat_res = adjacency_for(statics, config, lattice_offsets)
     _, tet_pos, _ = model.decode_pos(init_pos, pyr_pos, pos_mask, False, adj,
-                                     config.res, cam_bx4x4=cam)
-    soa = gather_tet_soa_lattice(tet_pos, config.res, tet_lattice)
+                                     lat_res, cam_bx4x4=cam)
+    soa = tet_soa_for(tet_pos, statics, config, tet_lattice)
     logits = decode_occ_full_grid(model, tet_centers_soa(soa), pyr_occ,
                                   chunk=min(100_000, statics.n_tets), cam=cam)
     return tet_pos, soa, logits
@@ -128,7 +168,9 @@ def _predict(model, batch, statics: GridStatics, config: TrainConfig,
 def _surface(pred_occ, statics: GridStatics, config: TrainConfig,
              face_lattice):
     faces_b, mask_b = boundary_faces_from_occupancy(
-        pred_occ, statics.face_fx3, face_lattice)
+        pred_occ, statics.face_fx3, statics.face_tet_fx2,
+        face_lattice_for(statics, face_lattice))
+    # budget 0: every boundary face
     budget = config.resolved_max_boundary_faces() or faces_b.shape[1]
     work_faces, work_mask = select_boundary_subset(faces_b, mask_b, budget)
     return work_faces, work_mask, mask_b, budget
@@ -175,9 +217,8 @@ def make_inference_step(model, config: TrainConfig, lattice_offsets=None,
     all metrics, without gradients.
 
     ``draws`` may hold ``noise`` (the input noise), ``pred`` and ``gt``
-    (each (face_id, u_raw, v) for ``sample_mesh_points``)."""
-    if lattice_offsets is None or tet_lattice is None or face_lattice is None:
-        raise NotImplementedError("only the regular-lattice grid is ported")
+    (each (face_id, u_raw, v) for ``sample_mesh_points``).  Without the
+    lattice arguments the step runs the gather paths (any tet grid)."""
 
     @torch.no_grad()
     def infer(batch, statics: GridStatics,

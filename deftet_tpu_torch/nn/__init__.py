@@ -9,6 +9,7 @@ from .gcn import (
     GraphConvBlock,
     GraphConvLayer,
     LatticeAdjacency,
+    VertexAdjacency,
 )
 from .layers import BatchNorm, Conv3d, Dense
 from .mlp import MLPDecoder
@@ -36,6 +37,7 @@ __all__ = [
     "PVConv",
     "SharedMLP",
     "VGG16Features",
+    "VertexAdjacency",
     "inject_vgg16",
     "load_vgg16_state_dict",
     "sample_grid_features",

@@ -1,5 +1,5 @@
 """Graph-convolutional vertex-offset decoder (torch port of
-deftet_tpu/nn/gcn.py, lattice path).
+deftet_tpu/nn/gcn.py).
 
   GraphConv      — self_filter(x) + filter(adj @ x)
   GraphConvLayer — relu applied BEFORE the conv
@@ -10,7 +10,8 @@ deftet_tpu/nn/gcn.py, lattice path).
 On the regular Kuhn lattice ``adj @ x`` is the 14-offset stencil, K1
 (ops.stencil), at every width: the JAX package's ``c >= 64`` and
 ``stencil_fits_vmem`` gates were TPU layout and VMEM choices, not part of
-the function.
+the function.  On any other grid it is ``VertexAdjacency``'s padded
+neighbour gather (losses.geometry.neighbor_mean).
 """
 
 from __future__ import annotations
@@ -23,8 +24,27 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import remat
+from ..losses.geometry import neighbor_mean
 from ..ops.stencil import lattice_neighbor_mean
 from .layers import BatchNorm, Dense, dropout
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class VertexAdjacency:
+    """Row-normalized vertex adjacency of any tet grid as padded
+    neighbour lists (tetgrid.topology.build_vertex_adjacency): ``idx``
+    (N, M) int64, ``mask`` (N, M) float32 (1 on each list's valid slots),
+    ``degree`` (N,) int32.  As in the JAX package the mean gathers the
+    padded (N, M, D) neighbour block, one batch element at a time (1.09 GB
+    at res 50, C 256, bf16, M 16; transient, not kept for the backward),
+    and sums it over m in float32."""
+
+    idx: torch.Tensor
+    mask: torch.Tensor
+    degree: torch.Tensor
+
+    def matmul(self, x_bxnxd: torch.Tensor) -> torch.Tensor:
+        return neighbor_mean(x_bxnxd, self.idx, self.mask, self.degree)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -60,7 +80,7 @@ class GraphConv(nn.Module):
         self.self_filter = Dense(in_dim, out_dim, dtype, generator)
         self.filter = Dense(in_dim, out_dim, dtype, generator)
 
-    def forward(self, x, adj: LatticeAdjacency):
+    def forward(self, x, adj):
         return self.self_filter(x) + self.filter(adj.matmul(x))
 
 
@@ -69,7 +89,7 @@ class GraphConvLayer(nn.Module):
         super().__init__()
         self.GraphConv_0 = GraphConv(in_dim, out_dim, dtype, generator)
 
-    def forward(self, x, adj: LatticeAdjacency):
+    def forward(self, x, adj):
         return self.GraphConv_0(F.relu(x), adj)
 
 
@@ -84,7 +104,7 @@ class GraphConvBlock(nn.Module):
         self.shortcut = (Dense(in_dim, out_dim, dtype, generator)
                          if in_dim != out_dim else None)
 
-    def forward(self, x, adj: LatticeAdjacency):
+    def forward(self, x, adj):
         net = self.GraphConvLayer_0(x, adj)
         dx = self.GraphConvLayer_1(net, adj)
         shortcut = x if self.shortcut is None else self.shortcut(x)
@@ -121,11 +141,11 @@ class GCNMLPDecoder(nn.Module):
             j += 1
         self.head = Dense(width, out_dim, dtype, generator)
 
-    def forward(self, feat, adj: LatticeAdjacency, train: bool,
+    def forward(self, feat, adj, train: bool,
                 generator: torch.Generator | None = None):
         return self.from_initial(self.initial(feat), adj, train, generator)
 
-    def from_initial(self, x, adj: LatticeAdjacency, train: bool,
+    def from_initial(self, x, adj, train: bool,
                      generator: torch.Generator | None = None):
         """The GCN blocks and the MLP head on the initial layer's output,
         each block and the head one ``remat.segment``."""

@@ -36,7 +36,7 @@ from .. import remat
 from ..ops.voxelize import trilinear_devoxelize
 from .disn import DISNDecoder, DISNEncoder, disn_local_dim, \
     sample_image_features
-from .gcn import GCNMLPDecoder, LatticeAdjacency
+from .gcn import GCNMLPDecoder
 from .mlp import MLPDecoder
 from .pvcnn import DEFAULT_BLOCKS, PVCNNEncoder
 
@@ -180,14 +180,15 @@ class DeformableTetNetwork(nn.Module):
                        sample_image_features(maps, p_bxnx3, cam_bx4x4))
 
     def decode_pos(self, p_bxnx3, pyramid, pos_mask_bxnx3=None,
-                   train: bool = True, adj: LatticeAdjacency | None = None,
-                   lattice_res: int = 0,
+                   train: bool = True, adj=None, lattice_res: int = 0,
                    generator: torch.Generator | None = None,
                    cam_bx4x4: torch.Tensor | None = None):
-        """(pos_delta, tet_pos, ori_pos_delta).  ``lattice_res > 0``
-        asserts that ``p`` is the undeformed res-``lattice_res`` vertex
-        lattice, enabling the separable feature probe.  ``cam_bx4x4`` (the
-        DISN camera) defaults to the identity."""
+        """(pos_delta, tet_pos, ori_pos_delta).  ``adj`` is the GCN's
+        adjacency (nn.gcn: the lattice stencil or a VertexAdjacency).
+        ``lattice_res > 0`` asserts that ``p`` is the undeformed
+        res-``lattice_res`` vertex lattice, enabling the separable feature
+        probe; at 0 each vertex is probed by trilinear interpolation.
+        ``cam_bx4x4`` (the DISN camera) defaults to the identity."""
         if not self.train_def:
             zero = torch.zeros_like(p_bxnx3)
             return zero, p_bxnx3, zero
@@ -208,7 +209,7 @@ class DeformableTetNetwork(nn.Module):
                                      pos_mask_bxnx3)
             return delta + lap_delta, pos + lap_delta, ori_delta
         if adj is None:
-            raise ValueError("decode_pos needs the lattice adjacency")
+            raise ValueError("decode_pos needs the GCN's adjacency")
 
         # the pyramid probed at every vertex and a head's initial layer make
         # one remat segment, so the (B, N, 835) probe stays inside it

@@ -1,5 +1,5 @@
 """Class-major interior faces of the regular Kuhn tet grid (numpy; copy of
-deftet_tpu/tetgrid/lattice_faces.py trimmed to what the train step uses).
+deftet_tpu/tetgrid/lattice_faces.py).
 
 Every interior face of the regular grid is one of 12 translation classes
 (6 inside a cell, 6 across a cell wall).  Faces are ordered class-major,
@@ -27,8 +27,18 @@ import functools
 
 import numpy as np
 
-from .grid import build_tet_grid
-from .topology import build_faces, vertex_degree
+from .grid import _CUBE_TETS, build_tet_grid
+from .topology import (
+    FACE_ARRAYS,
+    FACE_IDX,
+    Topology,
+    build_edge_face_pairs,
+    build_faces,
+    build_tet_neighbors,
+    build_vertex_adjacency,
+    build_vertex_face_incidence,
+    build_vertex_tet_incidence,
+)
 
 #: The 7 edge direction classes of the Kuhn lattice, as (di, dj, dk) from
 #: the edge's min-corner anchor vertex.
@@ -151,8 +161,10 @@ def build_lattice_faces(r: int):
     """Class-major padded interior faces of a res-``r`` Kuhn grid.
 
     Returns ``(face_fx3 (12r^3, 3) int32, face_tet_fx2 (12r^3, 2) int32,
-    valid (12r^3,) bool)``; invalid slots carry the anchor tet's hull face
-    with ``face_tet = (anchor, anchor)``.
+    face_slot_fx2 (12r^3, 2) int32, valid (12r^3,) bool, hull_face_hx3
+    (H, 3) int32)``; invalid slots carry the anchor tet's hull face with
+    ``face_tet = (anchor, anchor)``.  The hull is the invalid slots' faces
+    plus the second-owner-side faces whose anchor cell is off the grid.
     """
     classes = face_class_table()
     n = r + 1
@@ -163,23 +175,93 @@ def build_lattice_faces(r: int):
     cells = np.stack([ii, jj, kk], axis=-1).reshape(-1, 3)
     cell_lin = cells[:, 0] * r * r + cells[:, 1] * r + cells[:, 2]
 
+    def vert_lin(pts):
+        return pts[..., 0] * n * n + pts[..., 1] * n + pts[..., 2]
+
     face_fx3 = np.empty((12 * r3, 3), np.int32)
     face_tet = np.empty((12 * r3, 2), np.int32)
+    face_slot = np.empty((12 * r3, 2), np.int32)
     valid = np.empty(12 * r3, bool)
+    hull_parts = []
     for c, fc in enumerate(classes):
         sl = slice(c * r3, (c + 1) * r3)
         pts = cells[:, None, :] + np.asarray(fc.voff, np.int64)[None]
-        face_fx3[sl] = (
-            pts[..., 0] * n * n + pts[..., 1] * n + pts[..., 2]
-        ).astype(np.int32)
+        face_fx3[sl] = vert_lin(pts).astype(np.int32)
         ta = fc.first_type * r3 + cell_lin
         partner = cells + np.asarray(fc.delta, np.int64)
         v = ((partner >= 0) & (partner < r)).all(axis=1)
         tb_cell = partner[:, 0] * r * r + partner[:, 1] * r + partner[:, 2]
         face_tet[sl, 0] = ta
         face_tet[sl, 1] = np.where(v, fc.second_type * r3 + tb_cell, ta)
+        face_slot[sl, 0] = fc.first_slot
+        face_slot[sl, 1] = np.where(v, fc.second_slot, fc.first_slot)
         valid[sl] = v
-    return face_fx3, face_tet, valid
+        hull_parts.append(face_fx3[sl][~v])
+
+    # the class face seen from the partner tet where the anchor cell would
+    # be off the grid, from the partner tet's corner offsets and local slot
+    corner_off = np.array(
+        [[(c >> 2) & 1, (c >> 1) & 1, c & 1] for c in range(8)], np.int64)
+    tet_corner_off = corner_off[_CUBE_TETS]  # (6, 4, 3)
+    for fc in classes:
+        if fc.delta == (0, 0, 0):
+            continue
+        anchor = cells - np.asarray(fc.delta, np.int64)
+        off = ~((anchor >= 0) & (anchor < r)).all(axis=1)
+        tri_off = tet_corner_off[fc.second_type][FACE_IDX[fc.second_slot]]
+        hull_parts.append(
+            vert_lin(cells[off][:, None, :] + tri_off[None]).astype(np.int32))
+    hull = (np.concatenate(hull_parts, axis=0) if hull_parts
+            else np.zeros((0, 3), np.int32))
+    return face_fx3, face_tet, face_slot, valid, hull
+
+
+def build_lattice_edge_arrays(r: int):
+    """Edge -> face incidence and face -> edge ids of the class-major
+    layout by arithmetic on the class tables (no sort over the 3F edge
+    keys).  Edges are numbered ``ec * (r+1)^3 + lin(anchor)`` over the 7
+    direction classes and the anchor vertices, so some edge rows are all
+    padding; their sums are inert.  Returns ``(edge_face_idx (7(r+1)^3,
+    Me) int32, edge_face_mask float32, face_edge_ids (12 r^3, 3) int32)``:
+    a mask is 1 wherever the incident face slot exists (its cell on the
+    grid), hull-padded slots included, as the generic builder lists them
+    on the padded face list."""
+    einc = edge_class_table()
+    r3 = r**3
+    n_anchor = (r + 1) ** 3
+    ai, aj, ak = np.meshgrid(
+        np.arange(r + 1), np.arange(r + 1), np.arange(r + 1), indexing="ij")
+    anchors = np.stack([ai, aj, ak], axis=-1).reshape(-1, 3)
+    me = max(len(t) for t in einc)
+    edge_face_idx = np.zeros((7 * n_anchor, me), np.int32)
+    edge_face_mask = np.zeros((7 * n_anchor, me), np.float32)
+    for ec, incs in enumerate(einc):
+        sl = slice(ec * n_anchor, (ec + 1) * n_anchor)
+        for j, (fc, d) in enumerate(incs):
+            cell = anchors + np.asarray(d, np.int64)
+            ok = ((cell >= 0) & (cell < r)).all(axis=1)
+            lin = cell[:, 0] * r * r + cell[:, 1] * r + cell[:, 2]
+            edge_face_idx[sl, j] = np.where(ok, fc * r3 + lin, 0).astype(
+                np.int32)
+            edge_face_mask[sl, j] = ok
+
+    inv = {fc: [] for fc in range(12)}
+    for ec, incs in enumerate(einc):
+        for fc, d in incs:
+            inv[fc].append((ec, d))
+    ci, cj, ck = np.meshgrid(
+        np.arange(r), np.arange(r), np.arange(r), indexing="ij")
+    cells = np.stack([ci, cj, ck], axis=-1).reshape(-1, 3)
+    face_edge_ids = np.empty((12 * r3, 3), np.int32)
+    for fc in range(12):
+        if len(inv[fc]) != 3:
+            raise AssertionError(f"face class {fc} has edges {inv[fc]}")
+        sl = slice(fc * r3, (fc + 1) * r3)
+        for j, (ec, d) in enumerate(inv[fc]):
+            m = cells - np.asarray(d, np.int64)  # anchor = cell - delta
+            lin = m[:, 0] * (r + 1) * (r + 1) + m[:, 1] * (r + 1) + m[:, 2]
+            face_edge_ids[sl, j] = (ec * n_anchor + lin).astype(np.int32)
+    return edge_face_idx, edge_face_mask, face_edge_ids
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,25 +286,41 @@ def face_lattice_info(grid) -> FaceLattice | None:
     )
 
 
-@dataclasses.dataclass
-class LatticeTopology:
-    """The topology arrays the lattice train step reads."""
-
-    tet_tx4: np.ndarray       # (T, 4) int32
-    face_fx3: np.ndarray      # (12 r^3, 3) int32 class-major faces
-    face_tet_fx2: np.ndarray  # (12 r^3, 2) int32 owners (self-paired if invalid)
-    vert_degree: np.ndarray   # (N,) int32
-
-
-def build_lattice_topology(grid) -> LatticeTopology | None:
-    """Class-major lattice topology, or None for a non-lattice grid."""
+def build_lattice_topology(grid, face_arrays: bool = True):
+    """The full ``Topology`` in the class-major padded face layout, or
+    None for a non-lattice grid.  Face-derived arrays (edge incidence,
+    edge pairs, vertex -> face incidence) come from the generic builders
+    on the padded face list, the edge incidence and face -> edge ids from
+    the class tables; with ``face_arrays=False`` those fields are None (the
+    lattice step reads them only for the uncompacted normal term).  Hull-
+    padded slots are left out of the tet neighbours."""
     if face_lattice_info(grid) is None:
         return None
-    face_v, face_tet, _ = build_lattice_faces(grid.resolution)
+    r = grid.resolution
+    n_point = grid.n_vertices
     tets = np.asarray(grid.tets, np.int32)
-    return LatticeTopology(
-        tet_tx4=tets,
-        face_fx3=face_v,
-        face_tet_fx2=face_tet,
-        vert_degree=vertex_degree(tets, grid.n_vertices),
-    )
+    face_v, face_tet, face_slot, valid, hull = build_lattice_faces(r)
+    vai, vam, deg = build_vertex_adjacency(tets, n_point)
+    nbr = build_tet_neighbors(face_tet[valid], face_slot[valid],
+                              tets.shape[0])
+    vti, vtm = build_vertex_tet_incidence(tets, n_point)
+    face = dict.fromkeys(FACE_ARRAYS)
+    if face_arrays:
+        efi, efm, fei = build_lattice_edge_arrays(r)
+        # flattening the incidence row-major is already edge-ascending
+        flat_mask = efm.reshape(-1) > 0
+        pa, pb = build_edge_face_pairs(face_v, n_point)
+        vfi, vfm = build_vertex_face_incidence(face_v, n_point)
+        face = dict(
+            edge_face_idx=efi, edge_face_mask=efm, edge_pair_fa=pa,
+            edge_pair_fb=pb, edge_entry_face=efi.reshape(-1)[flat_mask],
+            edge_entry_edge=np.repeat(np.arange(efi.shape[0], dtype=np.int32),
+                                      efi.shape[1])[flat_mask],
+            face_edge_ids=fei, vert_face_inc_idx=vfi,
+            vert_face_inc_mask=vfm)
+    return Topology(
+        n_vertices=int(n_point), n_tets=int(tets.shape[0]), tet_tx4=tets,
+        face_fx3=face_v, face_tet_fx2=face_tet, face_slot_fx2=face_slot,
+        hull_face_hx3=hull, vert_adj_idx=vai, vert_adj_mask=vam,
+        vert_degree=deg, tet_neighbor_tx4=nbr, vert_tet_inc_idx=vti,
+        vert_tet_inc_mask=vtm, **face)

@@ -6,6 +6,12 @@ device (torch port of deftet_tpu/train/engine.py).
 plain PyTorch version instead, as the tests do.  Asking for CUDA without
 a GPU raises; nothing falls back silently.
 
+Without ``statics`` the engine builds the regular res-``config.res`` Kuhn
+grid and takes its stencil and slice fast paths.  Given ``statics``
+(``build_grid_statics(res, grid=...)`` of any tet grid, e.g. one read by
+``read_tet_file``) every lattice fast path is off and the step runs the
+gather paths, as in the JAX package.
+
 The experiment directory (config, state, ``metrics.jsonl``, ``ckpt/``)
 is created at the first write, so an engine that only takes steps writes
 nothing.  A checkpoint holds the model's parameters and BatchNorm
@@ -28,7 +34,13 @@ from ..nn import DeformableTetNetwork
 from ..tetgrid import build_tet_grid, face_lattice_info
 from ..utils.timing import TimingRegistry
 from .checkpoint import restore_checkpoint, save_checkpoint
-from .statics import build_grid_statics, lattice_offsets, lattice_tet_offsets
+from .statics import (
+    GridStatics,
+    build_grid_statics,
+    lattice_offsets,
+    lattice_tet_offsets,
+    statics_to,
+)
 from .step import eval_step, forward_losses, make_optimizer, train_step
 
 
@@ -49,7 +61,8 @@ class Engine:
     """Owns the statics, model, optimizer and generator of one run."""
 
     def __init__(self, config: TrainConfig, device="cuda",
-                 experiment: Optional[Experiment] = None):
+                 experiment: Optional[Experiment] = None,
+                 statics: Optional[GridStatics] = None):
         check_supported(config)
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -64,12 +77,21 @@ class Engine:
             torch.backends.cudnn.allow_tf32 = False
         self.config = config
         self._experiment = experiment
-        grid = build_tet_grid(config.res)
-        self.statics = build_grid_statics(config.res, grid=grid,
-                                          device=self.device)
-        self.lattice_offsets = lattice_offsets(grid)
-        self.tet_lattice = lattice_tet_offsets(grid)
-        self.face_lattice = face_lattice_info(grid)
+        if statics is not None:
+            self.statics = statics_to(statics, self.device)
+            self.lattice_offsets = self.tet_lattice = None
+            self.face_lattice = None
+        else:
+            grid = build_tet_grid(config.res)
+            # the lattice's face-derived gather tables are read only by
+            # the uncompacted normal term
+            budget = config.resolved_max_boundary_faces()
+            self.statics = build_grid_statics(
+                config.res, grid=grid, device=self.device,
+                face_arrays=not 0 < budget < 12 * config.res**3)
+            self.lattice_offsets = lattice_offsets(grid)
+            self.tet_lattice = lattice_tet_offsets(grid)
+            self.face_lattice = face_lattice_info(grid)
         init_gen = torch.Generator().manual_seed(config.seed)
         self.model = DeformableTetNetwork(
             blocks=config.parsed_blocks(),

@@ -1,5 +1,6 @@
-"""Per-resolution static tensors of the train step (torch port of
-deftet_tpu/train/statics.py, lattice topology only)."""
+"""Per-grid static tensors of the train step (torch port of
+deftet_tpu/train/statics.py): the regular lattice's class-major topology,
+or any tet grid's through the generic numpy builders."""
 
 from __future__ import annotations
 
@@ -9,14 +10,34 @@ import numpy as np
 import torch
 
 from ..ops.geometry import tet_rest_inverse
-from ..tetgrid import TetGrid, build_lattice_topology, build_tet_grid
+from ..tetgrid import (
+    TetGrid,
+    Topology,
+    build_lattice_topology,
+    build_tet_grid,
+    build_topology,
+)
 
 
 class GridStatics(NamedTuple):
+    """Index tensors are int64.  The face-derived gather tables
+    (``edge_face_*``, ``face_edge_ids``, ``vert_face_inc_*``) are None
+    where they were not built (the lattice at a compaction budget)."""
+
     init_pos_nx3: torch.Tensor        # (N, 3) float32 in [-0.5, 0.5]
     pos_mask_nx3: torch.Tensor        # (N, 3) float32 deformable mask
-    tet_tx4: torch.Tensor             # (T, 4) int64
-    face_fx3: torch.Tensor            # (12 r^3, 3) int64 class-major faces
+    tet_tx4: torch.Tensor             # (T, 4)
+    face_fx3: torch.Tensor            # (F, 3) interior faces
+    face_tet_fx2: torch.Tensor        # (F, 2) owning tets
+    edge_face_idx: torch.Tensor       # (E, M) faces incident per edge
+    edge_face_mask: torch.Tensor      # (E, M) float32
+    face_edge_ids: torch.Tensor       # (F, 3)
+    vert_face_inc_idx: torch.Tensor   # (N, M) face-corner slots
+    vert_face_inc_mask: torch.Tensor  # (N, M) float32
+    vert_tet_inc_idx: torch.Tensor    # (N, Mt) tet-corner slots
+    vert_tet_inc_mask: torch.Tensor   # (N, Mt) float32
+    vert_adj_idx: torch.Tensor        # (N, Ma) neighbour vertices
+    vert_adj_mask: torch.Tensor       # (N, Ma) float32
     vert_degree: torch.Tensor         # (N,) int32
     rest_inverse_tx3x3: torch.Tensor  # (T, 3, 3) float32
 
@@ -87,23 +108,54 @@ def lattice_tet_offsets(grid: TetGrid) -> tuple | None:
 
 
 def build_grid_statics(resolution: int, grid: TetGrid | None = None,
-                       device="cpu") -> GridStatics:
-    """Build the Kuhn grid's lattice topology and lift it to ``device``."""
+                       topology: Topology | None = None, device="cpu",
+                       face_arrays: bool = True) -> GridStatics:
+    """Build (or adopt) a grid and its topology and lift them to
+    ``device``: the class-major lattice topology for the regular Kuhn
+    grid, else ``build_topology``.  ``face_arrays=False`` skips the
+    lattice's face-derived gather tables (read only by the uncompacted
+    normal term)."""
     if grid is None:
         grid = build_tet_grid(resolution)
-    topo = build_lattice_topology(grid)
-    if topo is None:
-        raise NotImplementedError(
-            "only the regular lattice grid (res >= 2) is ported")
+    if topology is None:
+        topology = build_lattice_topology(grid, face_arrays=face_arrays)
+    if topology is None:
+        topology = build_topology(grid.tets, grid.n_vertices)
     dev = torch.device(device)
+
+    def lift(name, dtype=None):
+        a = getattr(topology, name)
+        if a is None:
+            return None
+        t = torch.as_tensor(a)
+        return t.to(device=dev, dtype=torch.int64 if dtype is None and
+                    not t.is_floating_point() else dtype)
+
     init_pos = torch.as_tensor(
         grid.centered_vertices().astype(np.float32), device=dev)
-    tet_tx4 = torch.as_tensor(topo.tet_tx4.astype(np.int64), device=dev)
+    tet_tx4 = lift("tet_tx4")
     return GridStatics(
         init_pos_nx3=init_pos,
-        pos_mask_nx3=torch.as_tensor(grid.interior_mask, device=dev),
+        pos_mask_nx3=torch.as_tensor(
+            grid.interior_mask.astype(np.float32), device=dev),
         tet_tx4=tet_tx4,
-        face_fx3=torch.as_tensor(topo.face_fx3.astype(np.int64), device=dev),
-        vert_degree=torch.as_tensor(topo.vert_degree, device=dev),
+        face_fx3=lift("face_fx3"),
+        face_tet_fx2=lift("face_tet_fx2"),
+        edge_face_idx=lift("edge_face_idx"),
+        edge_face_mask=lift("edge_face_mask"),
+        face_edge_ids=lift("face_edge_ids"),
+        vert_face_inc_idx=lift("vert_face_inc_idx"),
+        vert_face_inc_mask=lift("vert_face_inc_mask"),
+        vert_tet_inc_idx=lift("vert_tet_inc_idx"),
+        vert_tet_inc_mask=lift("vert_tet_inc_mask"),
+        vert_adj_idx=lift("vert_adj_idx"),
+        vert_adj_mask=lift("vert_adj_mask"),
+        vert_degree=lift("vert_degree", torch.int32),
         rest_inverse_tx3x3=tet_rest_inverse(init_pos, tet_tx4),
     )
+
+
+def statics_to(statics: GridStatics, device) -> GridStatics:
+    """``statics`` with every tensor on ``device``."""
+    return GridStatics(*(None if t is None else t.to(device)
+                         for t in statics))

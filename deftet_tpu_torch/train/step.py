@@ -1,6 +1,9 @@
 """The 3D-supervised train step: ``forward_losses``, the optimizer, one
 update (with gradient accumulation and rematerialization) and the
-validation step (torch port of deftet_tpu/train/step.py, lattice path).
+validation step (torch port of deftet_tpu/train/step.py).  On the regular
+lattice (the ``lattice_offsets`` / ``tet_lattice`` / ``face_lattice``
+arguments) the step takes the stencil and slice fast paths; without them,
+on any tet grid, the gather paths (evals.harness's shared dispatch).
 
 Random draws happen where the JAX step draws them — input noise, the
 occupancy center subsample (with replacement), dropout, the chamfer
@@ -25,17 +28,20 @@ import torch
 from .. import remat
 from ..config import TrainConfig
 from ..evals.metrics import iou
+from ..evals.harness import adjacency_for, face_lattice_for, tet_soa_for
 from ..losses.geometry import (
     amips_energy_soa,
     delta_loss,
     edge_length_soa,
     gather_tet_soa,
-    gather_tet_soa_lattice,
     tet_centers_soa,
     volume_variance_soa,
 )
-from ..losses.surface import occupancy_bce, surface_align_losses
-from ..nn.gcn import LatticeAdjacency
+from ..losses.surface import (
+    boundary_info_from_occupancy,
+    occupancy_bce,
+    surface_align_losses,
+)
 from ..ops.check_sign import check_sign
 from ..ops.lattice import lattice_boundary_info
 from ..ops.voxelize import occupancy_from_grid_soa
@@ -136,8 +142,6 @@ def forward_losses(
 ):
     """Full forward.  Returns (total, terms); in training the model's
     BatchNorm running statistics are updated in place."""
-    if lattice_offsets is None or tet_lattice is None or face_lattice is None:
-        raise NotImplementedError("only the regular-lattice step is ported")
     draws = draws or {}
     surface = batch["surface_points"]
     b = surface.shape[0]
@@ -171,11 +175,11 @@ def forward_losses(
     # (model.decode_pos); the occupancy decoder; the losses.  Under
     # remat.segmented (train_step with remat) the backward recomputes each
     # on its own
-    adj = LatticeAdjacency.from_degree(lattice_offsets, statics.vert_degree)
+    adj, lat_res = adjacency_for(statics, config, lattice_offsets)
     pyr_pos, pyr_occ = remat.segment(lambda: model.encode(inp, train),
                                      *model.encoders())
     pred_delta, tet_pos, _ = model.decode_pos(
-        init_pos, pyr_pos, pos_mask, train, adj, config.res, generator,
+        init_pos, pyr_pos, pos_mask, train, adj, lat_res, generator,
         cam_bx4x4=cam)
 
     def occupancy_logits():
@@ -197,7 +201,7 @@ def _losses(batch, statics, config, generator, draws, face_lattice,
     surface = batch["surface_points"]
     b = surface.shape[0]
     device = surface.device
-    soa = gather_tet_soa_lattice(tet_pos, config.res, tet_lattice)
+    soa = tet_soa_for(tet_pos, statics, config, tet_lattice)
     cx, cy, cz = tet_centers_soa(soa)
 
     # GT occupancy at the deformed centers, no gradient: one read of the
@@ -233,10 +237,13 @@ def _losses(batch, statics, config, generator, draws, face_lattice,
     boundary_overflow = None
     if (want(config.lambda_surf) or want(config.lambda_surf_chamfer)
             or want(config.lambda_normal)):
-        if statics.face_fx3.shape[0] != 12 * face_lattice.res**3:
-            raise NotImplementedError("statics are not class-major lattice")
-        boundary_mask, boundary_sign = lattice_boundary_info(
-            center_occ, face_lattice)
+        face_lattice = face_lattice_for(statics, face_lattice)
+        if face_lattice is not None:
+            boundary_mask, boundary_sign = lattice_boundary_info(
+                center_occ, face_lattice)
+        else:
+            boundary_mask, boundary_sign = boundary_info_from_occupancy(
+                center_occ, statics.face_tet_fx2)
         budget = config.resolved_max_boundary_faces()
         bary = None
         if "bary_u" in draws:
@@ -252,12 +259,17 @@ def _losses(batch, statics, config, generator, draws, face_lattice,
             samples_cap=config.chamfer_samples_cap,
             generator=generator,
             bary=bary,
+            edge_topo=(statics.edge_face_idx, statics.edge_face_mask,
+                       statics.face_edge_ids, statics.vert_face_inc_idx,
+                       statics.vert_face_inc_mask),
         )
         # mean boundary-face count past the compaction budget: > 0 means
-        # the surface terms saw the first-k (class-major) subset this step
+        # the surface terms saw the first-k subset this step; budget 0
+        # compacts nothing
         n_boundary = torch.sum(boundary_mask > 0, dim=1)
-        boundary_overflow = torch.clamp(n_boundary - budget, min=0).to(
-            torch.float32).mean()
+        boundary_overflow = (
+            torch.clamp(n_boundary - budget, min=0).to(torch.float32).mean()
+            if budget > 0 else torch.zeros((), device=device))
     else:
         chamfer = analytic = normal = b_zero
 

@@ -102,9 +102,13 @@ def test_boundary_faces_and_subset_match_reference(grid4):
     faces_ref, mask_ref = jax_surface.boundary_faces_from_occupancy(
         jnp.asarray(occ), jstat.face_fx3, jstat.face_tet_fx2)
     faces, mask = surface.boundary_faces_from_occupancy(
-        torch.tensor(occ), pstat.face_fx3, face_lattice)
+        torch.tensor(occ), pstat.face_fx3, pstat.face_tet_fx2, face_lattice)
     np.testing.assert_array_equal(faces.numpy(), np.asarray(faces_ref))
     np.testing.assert_array_equal(mask.numpy(), np.asarray(mask_ref))
+    # the port's gather form (any grid) gives the same on this layout
+    g_faces, g_mask = surface.boundary_faces_from_occupancy(
+        torch.tensor(occ), pstat.face_fx3, pstat.face_tet_fx2)
+    assert torch.equal(g_faces, faces) and torch.equal(g_mask, mask)
     n_boundary = int(mask.sum(dim=1).max())
     for k in (n_boundary // 2, n_boundary + 40):  # overflow and slack
         sf_ref, sm_ref = jax_surface.select_boundary_subset(faces_ref,

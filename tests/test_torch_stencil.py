@@ -16,14 +16,14 @@ from deftet_tpu.tetgrid import build_tet_grid as jax_grid
 from deftet_tpu.train.statics import lattice_offsets as jax_offsets
 from deftet_tpu_torch.ops import stencil
 from deftet_tpu_torch.tetgrid import build_tet_grid
-from deftet_tpu_torch.tetgrid.topology import vertex_degree
+from deftet_tpu_torch.tetgrid.topology import build_vertex_adjacency
 from deftet_tpu_torch.train.statics import lattice_offsets
 
 
 def _lattice(res):
     grid = build_tet_grid(res)
     offs = lattice_offsets(grid)
-    deg = vertex_degree(grid.tets, grid.n_vertices)
+    deg = build_vertex_adjacency(grid.tets, grid.n_vertices)[2]
     inv_deg = (1.0 / np.maximum(deg, 1)).astype(np.float32)
     return grid.resolution + 1, offs, inv_deg
 

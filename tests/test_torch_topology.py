@@ -1,0 +1,114 @@
+"""The port's numpy topology builders against the JAX package's, array
+for array and bit for bit (dtype included): the generic ``build_topology``
+on a Kuhn grid and on a 1->8 split grid, the lattice's class-major
+``build_lattice_topology`` (with and without its face-derived arrays), a
+``.tet`` round trip, ``Topology.save`` / ``load``, and the general grid's
+``build_grid_statics``."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+import torch_parity as tp
+from deftet_tpu.tetgrid import build_tet_grid as jax_grid
+from deftet_tpu.tetgrid import lattice_faces as jax_lattice
+from deftet_tpu.tetgrid import topology as jax_topology
+from deftet_tpu.train import statics as jax_statics
+from deftet_tpu_torch.tetgrid import (
+    Topology,
+    build_lattice_edge_arrays,
+    build_lattice_topology,
+    build_tet_grid,
+    build_topology,
+    face_lattice_info,
+)
+from deftet_tpu_torch.tetgrid.topology import FACE_ARRAYS
+from deftet_tpu_torch.train import statics
+
+
+def assert_same_topology(got, ref, skip=()):
+    for field in dataclasses.fields(ref):
+        if field.name in skip:
+            continue
+        g, r = getattr(got, field.name), getattr(ref, field.name)
+        if isinstance(r, int):
+            assert g == r, field.name
+            continue
+        assert g.dtype == r.dtype and g.shape == r.shape, field.name
+        np.testing.assert_array_equal(g, r, err_msg=field.name)
+
+
+@pytest.fixture(scope="module")
+def split(tmp_path_factory):
+    return tp.split_grid(tmp_path_factory.mktemp("grid") / "split.tet")
+
+
+@pytest.mark.parametrize("kind", ["kuhn3", "split2"])
+def test_build_topology_matches_reference(kind, split):
+    if kind == "kuhn3":
+        tets, n = build_tet_grid(3).tets, build_tet_grid(3).n_vertices
+        assert np.array_equal(tets, jax_grid(3).tets)
+    else:
+        tets, n = split[1].tets, split[1].n_vertices
+        assert face_lattice_info(split[1]) is None  # not a lattice
+    assert_same_topology(build_topology(tets, n),
+                         jax_topology.build_topology(tets, n))
+
+
+@pytest.mark.parametrize("res", [2, 3])
+def test_lattice_topology_matches_reference(res):
+    grid = build_tet_grid(res)
+    ref = jax_lattice.build_lattice_topology(jax_grid(res))
+    got = build_lattice_topology(grid)
+    # the reference takes its native builders where they compile; they
+    # list each edge's face pairs in another order (tests/test_native.py)
+    assert_same_topology(got, ref, skip=("edge_pair_fa", "edge_pair_fb"))
+    assert sorted(zip(got.edge_pair_fa, got.edge_pair_fb)) == sorted(
+        zip(ref.edge_pair_fa, ref.edge_pair_fb))
+    for got_a, ref_a in zip(build_lattice_edge_arrays(res),
+                            jax_lattice.build_lattice_edge_arrays(res)):
+        np.testing.assert_array_equal(got_a, ref_a)
+    bare = build_lattice_topology(grid, face_arrays=False)
+    assert all(getattr(bare, f) is None for f in FACE_ARRAYS)
+    assert_same_topology(bare, ref, skip=FACE_ARRAYS)
+
+
+def test_tet_file_round_trip_and_topology_save_load(split, tmp_path):
+    jgrid, grid = split
+    for name in ("vertices", "tets", "interior_mask"):
+        a, b = getattr(grid, name), getattr(jgrid, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert grid.resolution == jgrid.resolution == 0
+    g = build_tet_grid(2)
+    assert grid.n_vertices == 5**3 and grid.n_tets == 8 * g.n_tets
+    topo = build_topology(grid.tets, grid.n_vertices)
+    topo.save(str(tmp_path / "topo.npz"))
+    assert_same_topology(Topology.load(str(tmp_path / "topo.npz")), topo)
+    # a lattice topology without its face arrays saves what it has
+    bare = build_lattice_topology(g, face_arrays=False)
+    bare.save(str(tmp_path / "bare.npz"))
+    back = Topology.load(str(tmp_path / "bare.npz"))
+    assert all(getattr(back, f) is None for f in FACE_ARRAYS)
+    assert_same_topology(back, bare, skip=FACE_ARRAYS)
+
+
+def test_general_grid_statics_match_reference(split):
+    jgrid, grid = split
+    ref = jax_statics.build_grid_statics(4, grid=jgrid)
+    got = statics.build_grid_statics(4, grid=grid)
+    for name in ref._fields:
+        g, r = getattr(got, name).numpy(), np.asarray(getattr(ref, name))
+        assert g.shape == r.shape, name
+        if name == "rest_inverse_tx3x3":
+            np.testing.assert_allclose(g, r, rtol=1e-6, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(g, r, err_msg=name)
+    # a grid read from a file has no resolution: no lattice fast path
+    assert statics.lattice_offsets(grid) is None
+    assert statics.lattice_tet_offsets(grid) is None
+    # the lattice at a compaction budget leaves the face tables out
+    bare = statics.build_grid_statics(3, face_arrays=False)
+    assert bare.edge_face_idx is None and bare.vert_face_inc_idx is None
+    assert bare.vert_adj_idx is not None and bare.vert_tet_inc_idx is not None

@@ -173,3 +173,27 @@ def flax_layout(model: torch.nn.Module, tensors: dict) -> dict:
             out[f"{mod}.{leaf}"] = a
     return out
 
+
+
+def split_grid(path, res=2):
+    """(JAX TetGrid, port TetGrid) of the res-``res`` Kuhn grid split 1->8
+    by the port's ``subdivide_tets``: a non-lattice grid, written by the
+    port's ``save_tet_file`` to ``path`` and read back by each package's
+    ``read_tet_file`` (the path a quartet ``.tet`` grid takes)."""
+    from deftet_tpu.tetgrid import read_tet_file as jax_read
+    from deftet_tpu_torch.tetgrid import (TetGrid, build_tet_grid,
+                                          read_tet_file, save_tet_file,
+                                          subdivide_tets)
+
+    g = build_tet_grid(res)
+    points, _, tets = subdivide_tets(g.tets, g.vertices)
+    save_tet_file(TetGrid(vertices=points, tets=tets,
+                          interior_mask=np.zeros_like(points)), str(path))
+    return jax_read(str(path)), read_tet_file(str(path))
+
+
+def build_topology_of(pstat):
+    """The port's numpy ``Topology`` of a port ``GridStatics``' tets."""
+    from deftet_tpu_torch.tetgrid import build_topology
+
+    return build_topology(pstat.tet_tx4.numpy(), pstat.n_vertices)
