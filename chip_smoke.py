@@ -45,6 +45,17 @@ Phases, each reporting on lines of its own:
    their launch-weighted total per step), K2 also at the eval metrics'
    shape (100,000 against 100,000 points), then K1-K3 at the inference
    step's inputs;
+   ddp_parity — two ranks sharing the card (gloo over CUDA tensors) take
+   one res-4 f32 step with dropout, and one with grad_accum=2 and remat,
+   held to the one-process step on the card (terms rtol 2e-4, gradients
+   2e-3); then a one-rank NCCL world against an Engine without a world,
+   bit for bit; ddp_step — the main path's configuration as two ranks of
+   2 rows on the one card: per rank one warm-up and five timed steps,
+   their launches (K1 10, K2 1, K3 1), peak memory, then K1-K3 checked at
+   rank 0's inputs (two processes share the card: not a scaling number);
+   dryrun — ``dryrun.entry()`` against the CPU, ``dryrun_multidevice(2)``;
+   sampling — FPS, ball query and 3-NN on the card against the CPU at 2 x
+   16,384 points and 1,024 centers, timed;
 6. paper_step — bench.py's paper recipe (res 70, batch 8, grad_accum=2)
    with and without remat (which must lower the peak memory), the bytes
    each remat segment saves, and K1-K3 at its inputs; then the kernels'
@@ -113,7 +124,9 @@ KERNEL_INFO = {
 
 
 def say(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    # one write a line: ranks sharing this stdout do not split each other's
+    sys.stdout.write(json.dumps({"phase": phase, **fields}) + "\n")
+    sys.stdout.flush()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -2838,6 +2851,319 @@ def render_cli():
         raise AssertionError(f"cli render wrote {names}")
 
 
+
+# ------------------------------------------------------------ data parallel
+# Two ranks share the one card over gloo (NCCL refuses two ranks on one
+# device); a one-rank world runs on NCCL.  Tolerances of the data-parallel
+# contract (tests/test_train.py's sharded-against-single test): terms rtol
+# 2e-4 / atol 1e-6, gradients rtol 2e-3 / atol 1e-5.
+DDP_TERMS, DDP_GRADS = (2e-4, 1e-6), (2e-3, 1e-5)
+DDP_RANKS = 2
+
+
+def ddp_config(**over):
+    """The CPU tests' data-parallel configuration: the small network at res
+    4 in float32, batch 4, dropout in both decoders, input noise and a
+    random center subsample."""
+    kw = dict(batch_size=4, occ_sample=64, occ_mlp_hidden="16,0.2,8",
+              pos_mlp_hidden="8,0.3")
+    kw.update(over)
+    return small_config(**kw)
+
+
+def ddp_record(cfg, batch, world=None, device=None):
+    """One Engine step (of ``world``'s rank, or of one process): its
+    terms, the gradient the optimizer was handed and the BatchNorm
+    statistics after it, on the CPU."""
+    from deftet_tpu_torch.train import Engine
+
+    engine = Engine(cfg, device=device or DEVICE, world=world)
+    grads = []
+    step = engine.optimizer.step
+
+    def record(g):
+        grads.append([t.detach().cpu().clone() for t in g])
+        step(g)
+
+    engine.optimizer.step = record
+    terms = engine.train_step(engine._prep_batch(batch))
+    return {"terms": {k: float(v) for k, v in terms.items()},
+            "grads": grads[0],
+            "stats": {n: v.detach().cpu().clone()
+                      for n, v in engine.model.named_buffers()}}
+
+
+def _ddp_parity_rank(world, cases):
+    return {"backend": world.backend, "device": str(world.device),
+            **{name: ddp_record(cfg, batch, world)
+               for name, (cfg, batch) in cases.items()}}
+
+
+def _one_rank_identity(world, cfg, batch):
+    """A one-rank world's step against an Engine without one, in the same
+    process, deterministic algorithms on for both; also two runs without
+    a world, to show the determinism the comparison needs."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        a = ddp_record(cfg, batch, device=world.device)
+        b = ddp_record(cfg, batch, device=world.device)
+        c = ddp_record(cfg, batch, world=world)
+
+    def same(x, y):
+        return (x["terms"] == y["terms"]
+                and all(torch.equal(g, h)
+                        for g, h in zip(x["grads"], y["grads"]))
+                and all(torch.equal(x["stats"][k], y["stats"][k])
+                        for k in x["stats"]))
+
+    nondet = sorted({str(w.message)[:120] for w in caught
+                     if "determinis" in str(w.message)})
+    return {"backend": world.backend, "same_without_world": same(a, b),
+            "same_with_world": same(a, c), "nondeterministic_ops": nondet}
+
+
+def ddp_parity():
+    """Two ranks sharing the card (gloo over CUDA tensors) against the
+    one-process step on the card, with dropout, and with grad_accum=2 and
+    remat; then a one-rank NCCL world against an Engine without a world,
+    bit for bit."""
+    import os
+
+    from deftet_tpu_torch import parallel
+
+    cases = {"dropout": ddp_config(),
+             "accum_remat": ddp_config(grad_accum=2, remat=True)}
+    cases = {k: (cfg, bench_batch(cfg, level=1, occ_res=16))
+             for k, cfg in cases.items()}
+    torch.cuda.empty_cache()
+    ranks = parallel.run_ranks(_ddp_parity_rank, DDP_RANKS, cases,
+                               device=DEVICE)
+    report = {"backend": [r["backend"] for r in ranks],
+              "devices": [r["device"] for r in ranks]}
+    worst = 0.0
+    for name, (cfg, batch) in cases.items():
+        ref = ddp_record(cfg, batch)
+        for rank, got in enumerate(ranks):
+            got = got[name]
+            r_terms = max(ratio(got["terms"][k], v, *DDP_TERMS)
+                          for k, v in ref["terms"].items())
+            r_grads = max(ratio(g, h, *DDP_GRADS)
+                          for g, h in zip(got["grads"], ref["grads"]))
+            r_stats = max(ratio(got["stats"][k], v, *DDP_TERMS)
+                          for k, v in ref["stats"].items())
+            report[f"{name}_rank{rank}"] = dict(terms=r_terms, grads=r_grads,
+                                                stats=r_stats)
+            worst = max(worst, r_terms, r_grads, r_stats)
+    say("ddp_parity", worst_ratio=worst, ratios=report,
+        tolerances={"terms": DDP_TERMS, "grads": DDP_GRADS})
+    if report["backend"] != ["gloo"] * DDP_RANKS:
+        raise AssertionError(f"two ranks on one card: {report['backend']}")
+    if worst > 1.0:
+        raise AssertionError(f"2-rank step differs from one process: {worst}")
+
+    cfg, batch = cases["dropout"]
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    one = parallel.run_ranks(_one_rank_identity, 1, cfg, batch,
+                             device=DEVICE)[0]
+    say("ddp_one_rank", **one)
+    if one["backend"] != "nccl":
+        raise AssertionError(f"a one-rank world on {one['backend']}")
+    if not one["same_with_world"]:
+        raise AssertionError("the one-rank NCCL step differs from the "
+                             "step without a world")
+
+
+def _ddp_step_rank(world, cfg, batch_np, smi):
+    """bench.py's configuration as this rank's rows: one warm-up and
+    TIMED_STEPS timed steps, each with its launches counted; rank 0 then
+    holds K1-K3 against their plain versions at the inputs its path gave
+    them, with the other rank finished."""
+    from deftet_tpu_torch.ops import _cuda
+    from deftet_tpu_torch.train import Engine
+
+    engine = Engine(cfg, world=world)
+    batch = engine._prep_batch(batch_np)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, per_step = [], []
+    with Recorder(variant_key) as rec:
+        for step in range(1 + TIMED_STEPS):
+            torch.distributed.barrier()
+            torch.cuda.synchronize()
+            _cuda.reset_launch_counts()
+            t = time.perf_counter()
+            terms = engine.train_step(batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            counts = dict(_cuda.launch_counts)
+            terms = {k: float(v) for k, v in terms.items()}
+            bad = [k for k, v in terms.items() if not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"rank {world.rank}: non-finite {bad}")
+            if counts != LAUNCHES_PER_STEP:
+                raise AssertionError(f"rank {world.rank}: launches {counts}"
+                                     f" != {LAUNCHES_PER_STEP}")
+            per_step.append(counts)
+            if step:
+                step_s.append(dt)
+    out = dict(rank=world.rank, backend=world.backend,
+               device=str(world.device),
+               rows=int(batch["surface_points"].shape[0]),
+               median_step_s=statistics.median(step_s), step_s=step_s,
+               spread_s=max(step_s) - min(step_s),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               launches_per_step=per_step[-1],
+               launches_total={k: sum(c[k] for c in per_step)
+                               for k in LAUNCHES_PER_STEP},
+               terms=terms)
+    say("ddp_step_rank", card=smi,
+        note="two ranks share one card: not a scaling number", **out)
+    torch.distributed.barrier()
+    if world.rank == 0:
+        per_variant = {k: c / (1 + TIMED_STEPS) for k, c in rec.counts.items()}
+        out["kernels"] = {
+            "stencil": check_stencil(rec.inputs, per_variant,
+                                     label="kernel_stencil_ddp"),
+            "nearest": check_nearest(rec.inputs[("nearest",)],
+                                     label="kernel_nearest_ddp"),
+            "tri_argmin": check_tri_argmin(rec.inputs[("tri_argmin",)],
+                                           label="kernel_tri_argmin_ddp"),
+        }
+    return out
+
+
+def ddp_step(smi):
+    """The main cell (res 50, batch 4, bf16) as two ranks of 2 rows each
+    on the one card, gloo over CUDA tensors: per rank the median step, its
+    spread, the peak memory and the launches of each step (K1 10, K2 1,
+    K3 1).  Two processes share one card here, so the step time is not a
+    scaling number."""
+    from deftet_tpu_torch import parallel
+
+    cfg = bench_config()
+    torch.cuda.empty_cache()
+    ranks = parallel.run_ranks(_ddp_step_rank, DDP_RANKS, cfg,
+                               bench_batch(cfg), smi, device=DEVICE)
+    totals = {r["terms"]["total"] for r in ranks}
+    say("ddp_step", backend=ranks[0]["backend"], card=smi,
+        note="two ranks share one card: not a scaling number",
+        median_step_s=[r["median_step_s"] for r in ranks],
+        spread_s=[r["spread_s"] for r in ranks],
+        max_memory_allocated_bytes=[r["max_memory_allocated_bytes"]
+                                    for r in ranks],
+        launches_per_step=[r["launches_per_step"] for r in ranks],
+        equal_terms=len(totals) == 1)
+    if len(totals) != 1:
+        raise AssertionError(f"the ranks' terms differ: {totals}")
+    return ranks[0]
+
+
+def dryrun_phase():
+    """``entry()`` on the card against the same forward on the CPU (rtol
+    1e-4, atol 1e-5: float32, TF32 off), then ``dryrun_multidevice(2)``:
+    two ranks sharing the card over gloo."""
+    from deftet_tpu_torch import dryrun
+
+    fn, args = dryrun.entry()
+    fn(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t
+    cpu_fn, _ = dryrun.entry(device="cpu")
+    ref = cpu_fn(*(a.cpu() for a in args))
+    ratios = [ratio(o, r, 1e-4, 1e-5) for o, r in zip(out, ref)]
+    finite = all(bool(torch.isfinite(o).all()) for o in out)
+    multi = dryrun.dryrun_multidevice(2)
+    say("dryrun", entry_s=entry_s, entry_shapes=[list(o.shape) for o in out],
+        entry_ratios=ratios, multidevice=multi)
+    if not finite or max(ratios) > 1.0:
+        raise AssertionError(f"entry(): finite {finite}, ratios {ratios}")
+    if any(r["backend"] != "gloo" for r in multi):
+        raise AssertionError("two ranks on one card must share it over gloo")
+
+
+def sampling_phase():
+    """ops.sampling on the card against the CPU at a moderate size: FPS
+    over 2 x 16,384 points to 1,024 (indices equal), ball query (radius
+    0.1, 32 slots) and 3-NN at those 1,024 centers: indices equal except
+    where a point lies within float32 rounding of the radius or of the
+    third neighbour (each such row counted), 3-NN values within rtol 1e-5
+    plus the error the expanded distance's rounding puts in its weights.
+    FPS, ball query and 3-NN timed."""
+    from deftet_tpu_torch.ops import sampling
+
+    gen = torch.Generator().manual_seed(12)
+    pts = torch.rand((2, 16384, 3), generator=gen) * 2 - 1
+    feats = torch.randn((2, 1024, 32), generator=gen)
+    g_pts, g_feats = pts.to(DEVICE), feats.to(DEVICE)
+
+    idx = sampling.furthest_point_sample(g_pts, 1024)
+    ref_idx = sampling.furthest_point_sample(pts, 1024)
+    if not torch.equal(idx.cpu(), ref_idx):
+        raise AssertionError("FPS indices differ between card and CPU")
+    centers = sampling.gather_points(pts, ref_idx)
+    g_centers = centers.to(DEVICE)
+
+    bq = sampling.ball_query(g_centers, g_pts, 0.1, 32).cpu()
+    bq_ref = sampling.ball_query(centers, pts, 0.1, 32)
+    d2 = sampling._pairwise_sqdist(centers, pts)
+    bq_ties = 0
+    for b, m in torch.nonzero((bq != bq_ref).any(-1)).tolist():
+        if not bool(((d2[b, m] - 0.01).abs() <= 1e-6).any()):
+            raise AssertionError(f"ball query differs at {b, m}: no tie")
+        bq_ties += 1
+
+    # 3-NN: the neighbours equal (a stable sort of the expanded distance
+    # on each device) except where the third and fourth are within
+    # rounding; the values within what that distance's rounding allows.
+    # It carries an absolute error of ~u (|p|^2 + |c|^2) (u = 2^-23), so
+    # a weight w ~ 1/d moves by up to ~4 u (|p|^2 + |c|^2) / d_min of
+    # itself: 3e-5 at a point 0.01 from its nearest center, and a point
+    # that is itself a center (d ~ rounding noise, clamped at 1e-10) has
+    # weights of noise on either device.
+    dp, ip = sampling._pairwise_sqdist(pts, centers).sort(dim=-1, stable=True)
+    g_dp, g_ip = sampling._pairwise_sqdist(g_pts, g_centers).sort(
+        dim=-1, stable=True)
+    nn_ties = 0
+    for b, n in torch.nonzero(
+            (g_ip[..., :3].cpu() != ip[..., :3]).any(-1)).tolist():
+        if float(dp[b, n, 3] - dp[b, n, 2]) > 1e-6:
+            raise AssertionError(f"3-NN neighbours differ at {b, n}: no "
+                                 f"tie, d2 {dp[b, n, :4].tolist()}")
+        nn_ties += 1
+    del g_dp, g_ip
+    nn = sampling.three_nn_interpolate(g_pts, g_centers, g_feats).cpu()
+    nn_ref = sampling.three_nn_interpolate(pts, centers, feats)
+    u = 2.0 ** -23
+    scale = (pts * pts).sum(-1) + (centers * centers).sum(-1).amax(-1,
+                                                                 keepdim=True)
+    weight_err = 4 * u * scale / dp[..., 0].clamp(min=1e-10)
+    tol = (1e-6 + 1e-5 * nn_ref.abs()
+           + weight_err[..., None] * feats.abs().amax(dim=(1, 2))[:, None,
+                                                                  None])
+    nn_ratio = float(((nn - nn_ref).abs() / tol).max())
+    at_center = int((dp[..., 0] <= 1e-6).sum())
+    if nn_ratio > 1.0:
+        raise AssertionError(f"3-NN values differ: ratio {nn_ratio}")
+    fps_ms = cuda_ms(lambda: sampling.furthest_point_sample(g_pts, 1024), 3)
+    bq_ms = cuda_ms(lambda: sampling.ball_query(g_centers, g_pts, 0.1, 32),
+                    10)
+    nn_ms = cuda_ms(lambda: sampling.three_nn_interpolate(
+        g_pts, g_centers, g_feats), 10)
+    say("sampling", fps_equal=True, ball_query_tie_rows=bq_ties,
+        three_nn_tie_points=nn_ties, three_nn_points_at_a_center=at_center,
+        three_nn_ratio=nn_ratio,
+        three_nn_plain_ratio=ratio(nn, nn_ref, 1e-5, 1e-6),
+        fps_ms=fps_ms, ball_query_ms=bq_ms, three_nn_ms=nn_ms,
+        shape="2 x 16,384 points, 1,024 centers")
+
+
 def kernel_entry(name, res, launches, path):
     source, replaces = KERNEL_INFO[name]
     entry = {
@@ -2914,6 +3240,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     g_kernels = timed("gather_kernels", check_gather_kernels, g_inputs)
     del g_inputs
+    timed("ddp_parity", ddp_parity)
+    ddp = timed("ddp_step", ddp_step, smi)
+    timed("dryrun", dryrun_phase)
+    timed("sampling", sampling_phase)
     paper_inputs, paper_per_step, paper_rows = timed("paper_step", paper_step)
     paper_kernels = timed("paper_kernels", check_paper_kernels, paper_inputs,
                           paper_per_step)
@@ -2948,6 +3278,11 @@ def main() -> int:
                 k: nearest_eval[k] for k in ("shape", "ms", "plain_ms",
                                              "bound_ms", "no_fma_ceiling_ms",
                                              "plan")}
+    for name, res in ddp["kernels"].items():
+        kernels.append(kernel_entry(
+            name, res, ddp["launches_total"][name],
+            "ddp_step (res 50, batch 4, bf16 as 2 ranks of 2 rows sharing "
+            "one card over gloo): rank 0"))
     for name, res in paper_kernels.items():
         kernels.append(kernel_entry(
             name, res, paper_rows[False]["launches_total"][name],

@@ -12,9 +12,10 @@ Sub-packages mirror the JAX package:
 * ``data``    — procedural shapes, the occupancy texture, the synthetic
   dataset, mesh-directory ingestion (watertight remesh) and the DISN
   images (own copies).
-* ``ops``     — geometry, voxelization, ray-parity occupancy, point-in-tet
-  and the three kernels: the lattice stencil (``ops.stencil``), nearest
-  neighbour (``ops.nearest``) and triangle argmin (``ops.tri_distance``).
+* ``ops``     — geometry, voxelization, ray-parity occupancy, point-in-tet,
+  the PointNet sampling ops, and the three kernels: the lattice stencil
+  (``ops.stencil``), nearest neighbour (``ops.nearest``) and triangle
+  argmin (``ops.tri_distance``).
 * ``nn``      — PVCNN encoders, GCN position decoder (and its lap
   refinement head), occupancy MLP, the DISN image branch and its offline
   VGG-16 loader.
@@ -25,11 +26,15 @@ Sub-packages mirror the JAX package:
 * ``render``  — the 2D-supervision stack: camera, the depth-peeled
   rasterizer (hit kernel ``raster_hit``), compositing, full frames, the
   optimizable tet scene and the staged carve/subdivide optimizer.
+* ``parallel`` — data parallelism over ``torch.distributed``: the world,
+  the divisor clamp, row sharding and the step's collectives.
 * ``remat``   — rematerialization that keeps named no-grad results.
 * ``utils``   — OBJ IO and named timers.
 * ``cli``     — ``python -m deftet_tpu_torch.cli
   train|eval|preprocess|render``.
 * ``convert`` — flax ``{"params", "batch_stats"}`` to a torch state dict.
+* ``dryrun``  — the flagship forward (``entry``) and a data-parallel
+  step on n ranks (``dryrun_multidevice``).
 
 Importing the package compiles nothing and does not touch CUDA; kernels
 are built from ``csrc/`` with ``nvcc`` at their first launch.

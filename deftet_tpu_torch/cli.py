@@ -16,6 +16,15 @@ ingests a mesh directory into shards on the host (numpy only, no device).
 a procedural one and writes ``records.json``, ``surface.obj`` and a
 turntable video.  ``--device`` defaults to ``cuda`` and never falls back
 to the CPU.
+
+``train`` under torchrun trains data-parallel, one process per card
+(NCCL; gloo with ``--device cpu``), each rank on its rows of every global
+batch, rank 0 alone writing the experiment:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m deftet_tpu_torch.cli train [--device cuda|cpu] [config flags]
+
+Without torchrun's environment it runs in one process.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import sys
 import numpy as np
 import torch
 
+from . import parallel
 from .config import Experiment, TrainConfig, add_config_args, config_from_args
 from .data import (
     ShapeDataset,
@@ -109,28 +119,50 @@ def train_main(argv=None) -> int:
     config = config_from_args(args)
     _refuse_unsupported(parser, config)
     device = _device(parser, args.device)
+    # under torchrun: one rank of a data-parallel run
+    world = (parallel.init_world(device.type)
+             if parallel.world_from_env() else None)
+    try:
+        return _train(config, device, world)
+    finally:
+        if world is not None:
+            torch.distributed.destroy_process_group()
 
+
+def _train(config: TrainConfig, device, world) -> int:
+    main = world is None or world.rank == 0
+    # rank 0 builds the dataset; the others wait, then read its shards
+    if not main:
+        torch.distributed.barrier()
     dataset = _dataset(config)
+    if main and world is not None:
+        torch.distributed.barrier()
     train_set, val_set = _split(dataset, config.batch_size)
-    engine = Engine(config, device=device)
-    # the split manifest, so that eval runs on the same held-out shapes;
-    # `disjoint` is false where small datasets reuse training shapes
-    with open(engine.experiment.file_path("split.json"), "w") as f:
-        json.dump({
-            "train": [os.path.abspath(p) for p in train_set.paths],
-            "val": [os.path.abspath(p) for p in val_set.paths],
-            "disjoint": not (set(train_set.paths) & set(val_set.paths)),
-        }, f, indent=2)
-    print(f"experiment: {engine.experiment.path}", flush=True)
+    engine = Engine(config, device=device, world=world)
+    if main:
+        # the split manifest, so that eval runs on the same held-out
+        # shapes; `disjoint` is false where small datasets reuse training
+        # shapes
+        with open(engine.experiment.file_path("split.json"), "w") as f:
+            json.dump({
+                "train": [os.path.abspath(p) for p in train_set.paths],
+                "val": [os.path.abspath(p) for p in val_set.paths],
+                "disjoint": not (set(train_set.paths) & set(val_set.paths)),
+            }, f, indent=2)
+        where = "" if world is None else (
+            f" ({world.size} ranks, {world.backend}, "
+            f"{engine.shard.size} in the step)")
+        print(f"experiment: {engine.experiment.path}{where}", flush=True)
     history = engine.fit(
         lambda: batch_iterator(
             train_set, config.batch_size,
             rng=np.random.default_rng(config.seed + engine.epoch)),
         lambda: batch_iterator(val_set, config.batch_size),
     )
-    for rec in history:
-        print(json.dumps(rec), flush=True)
-    print(f"best occupancy IoU: {engine.best_iou:.4f}")
+    if main:
+        for rec in history:
+            print(json.dumps(rec), flush=True)
+        print(f"best occupancy IoU: {engine.best_iou:.4f}")
     return 0
 
 

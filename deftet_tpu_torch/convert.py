@@ -16,6 +16,11 @@ paths are the flax paths joined with dots, so the mapping is per leaf:
 Every flax leaf must land on exactly one entry of the model's state dict
 and every entry must be filled; anything else raises with the offending
 paths.
+
+Modules covered: the whole ``DeformableTetNetwork`` (PVCNN, GCN, MLP and
+DISN branches), and the PointNet modules of ``nn.pointnet``, whose
+``SharedMLP_<i>`` (``Dense_<j>``, ``BatchNorm_<j>``) carry flax's names
+(``PointNetSAModule``'s ``BallQueryGrouper_<i>`` hold no variables).
 """
 
 from __future__ import annotations

@@ -20,6 +20,12 @@ Surface resampling draws faces from the area-weighted categorical over
 the masked faces, then sqrt-uv barycentrics.  ``draws`` injects the face
 ids and uniforms (and the input noise) so a test can hand both frameworks
 the same numbers.
+
+Under a data-parallel shard (``parallel.sharded``) the inference step
+computes the one-process numbers of the global batch: every draw is the
+rank's rows of the one-process draw (injected draws come at the global
+shape), and the per-example metrics are averaged over the global batch
+before ``val_iou_max`` takes its maximum.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import TYPE_CHECKING, Dict
 
 import torch
 
+from .. import parallel
 from ..config import TrainConfig
 from ..losses.geometry import (
     gather_tet_soa,
@@ -74,12 +81,20 @@ def sample_mesh_points(face_pos_bxfx3x3: torch.Tensor,
     dev = face_pos_bxfx3x3.device
     if draws is None:
         w = _face_areas(face_pos_bxfx3x3) * face_mask_bxf + 1e-20
-        face_id = torch.multinomial(w, n_points, replacement=True,
-                                    generator=generator)
-        u_raw = torch.rand((b, n_points, 1), generator=generator, device=dev)
-        v = torch.rand((b, n_points, 1), generator=generator, device=dev)
+        # a row's draws depend on its own weights and its place in the
+        # draw only: under a shard, this rank's weights in its rows of a
+        # global-shape matrix give its rows of the one-process draw
+        face_id = parallel.rows_of(torch.multinomial(
+            parallel.embed_rows(w, 1.0), n_points, replacement=True,
+            generator=generator))
+
+        def uniform(shape):
+            return torch.rand(shape, generator=generator, device=dev)
+
+        u_raw = parallel.draw_rows((b, n_points, 1), uniform)
+        v = parallel.draw_rows((b, n_points, 1), uniform)
     else:
-        face_id, u_raw, v = draws
+        face_id, u_raw, v = (parallel.rows_of(d) for d in draws)
     tri = torch.gather(face_pos_bxfx3x3, 1, face_id.long()[:, :, None, None]
                        .expand(-1, -1, 3, 3))
     u = torch.sqrt(u_raw)
@@ -150,8 +165,10 @@ def _predict(model, batch, statics: GridStatics, config: TrainConfig,
             if noise is None:
                 gen = torch.Generator(device=inp.device).manual_seed(
                     config.seed)
-                noise = torch.randn(inp.shape, generator=gen,
-                                    device=inp.device)
+                noise = parallel.draw_rows(inp.shape, lambda s: torch.randn(
+                    s, generator=gen, device=inp.device))
+            else:
+                noise = parallel.rows_of(noise)
             inp = inp + config.input_noise * noise
     init_pos = statics.init_pos_nx3[None].expand(bsz, -1, -1)
     pos_mask = statics.pos_mask_nx3[None].expand(bsz, -1, -1)
@@ -245,10 +262,14 @@ def make_inference_step(model, config: TrainConfig, lattice_offsets=None,
         occ_iou = torch.stack([iou(p, g, thresh=0.5)
                                for p, g in zip(pred_inside, gt_inside)])
         prob_at_pts = paste_occupancy(prob, cond) * in_grid
+        # each mean over the global batch (this batch in one process)
+        def mean(x):
+            return parallel.mean_over_shard(x.mean())
+
         sweep = {
-            f"val_iou_{t:.1f}": torch.stack(
+            f"val_iou_{t:.1f}": mean(torch.stack(
                 [iou(p, g, thresh=t) for p, g in zip(prob_at_pts, gt_inside)]
-            ).mean()
+            ))
             for t in IOU_THRESHOLDS
         }
         val_iou_max = torch.stack(list(sweep.values())).max()
@@ -285,20 +306,20 @@ def make_inference_step(model, config: TrainConfig, lattice_offsets=None,
 
         n_boundary = mask_b.sum(dim=1)
         return {
-            "occ_iou": occ_iou.mean(),
+            "occ_iou": mean(occ_iou),
             "val_iou_max": val_iou_max,
             **sweep,
-            "f_score": fs.mean(),
-            "f_score_extend": fs_ext.mean(),
-            "chamfer": ch.mean(),
-            "chamfer_l1": ch_l1.mean(),
-            "hausdorff": haus_avg.mean(),
-            "hausdorff_max": haus_max.mean(),
-            "n_boundary": n_boundary.mean(),
+            "f_score": mean(fs),
+            "f_score_extend": mean(fs_ext),
+            "chamfer": mean(ch),
+            "chamfer_l1": mean(ch_l1),
+            "hausdorff": mean(haus_avg),
+            "hausdorff_max": mean(haus_max),
+            "n_boundary": mean(n_boundary),
             # > 0: the budget cut the predicted surface to its first-k
             # (class-major) prefix
-            "boundary_overflow": torch.clamp(n_boundary - budget,
-                                             min=0.0).mean(),
+            "boundary_overflow": mean(torch.clamp(n_boundary - budget,
+                                                  min=0.0)),
         }
 
     return infer

@@ -17,13 +17,20 @@ EPS = 1e-15
 
 
 @torch.no_grad()
+def iou_counts(pred: torch.Tensor, target: torch.Tensor,
+               thresh: float = 0.5):
+    """(intersection, union) sizes of the two sets binarized at
+    ``thresh``."""
+    p = (pred > thresh).to(torch.float32).reshape(-1)
+    t = (target > thresh).to(torch.float32).reshape(-1)
+    return torch.sum(p * t), torch.sum(torch.clamp(p + t, 0.0, 1.0))
+
+
+@torch.no_grad()
 def iou(pred: torch.Tensor, target: torch.Tensor,
         thresh: float = 0.5) -> torch.Tensor:
     """IoU of the two sets binarized at ``thresh`` (a scalar per call)."""
-    p = (pred > thresh).to(torch.float32).reshape(-1)
-    t = (target > thresh).to(torch.float32).reshape(-1)
-    inter = torch.sum(p * t)
-    union = torch.sum(torch.clamp(p + t, 0.0, 1.0))
+    inter, union = iou_counts(pred, target, thresh)
     return inter / torch.clamp(union, min=1.0)
 
 

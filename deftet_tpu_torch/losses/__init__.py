@@ -1,5 +1,12 @@
-"""Tet regularizers and the surface losses."""
+"""Tet regularizers and the surface losses; the frustum box losses (on
+no path, for the inventory)."""
 
+from .frustum import (
+    FrustumPointNetLoss,
+    get_box_corners_3d,
+    huber_loss,
+    kl_loss,
+)
 from .geometry import (
     amips_energy,
     amips_energy_soa,
@@ -28,6 +35,7 @@ from .surface import (
 )
 
 __all__ = [
+    "FrustumPointNetLoss",
     "amips_energy",
     "amips_energy_soa",
     "boundary_faces_from_occupancy",
@@ -37,6 +45,9 @@ __all__ = [
     "edge_length_soa",
     "gather_tet_soa",
     "gather_tet_soa_lattice",
+    "get_box_corners_3d",
+    "huber_loss",
+    "kl_loss",
     "laplacian_loss",
     "neighbor_mean",
     "normal_smoothness_loss",

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from ..ops.geometry import edge_face_sum, incidence_gather
 from ..ops.lattice import lattice_boundary_info, lattice_edge_quadratics
 from ..ops.nearest import sided_squared_distance
@@ -302,10 +303,16 @@ def surface_align_losses(
             per_face = max(1, min(per_face_samples,
                                   samples_cap // max(n_work, 1)))
         if bary is None:
-            shape = (b, n_work, per_face, 1)
+            # per example: under a data-parallel shard, this rank's rows
+            # of the one-process draw
             dev = tet_pos_bxnx3.device
-            u_raw = torch.rand(shape, generator=generator, device=dev)
-            v = torch.rand(shape, generator=generator, device=dev)
+
+            def uniform(shape):
+                return torch.rand(shape, generator=generator, device=dev)
+
+            shape = (b, n_work, per_face, 1)
+            u_raw = parallel.draw_rows(shape, uniform)
+            v = parallel.draw_rows(shape, uniform)
         else:
             u_raw, v = bary
         samples = sample_surface_points(work_pos, u_raw, v)

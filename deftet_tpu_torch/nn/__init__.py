@@ -1,5 +1,6 @@
 """Networks: PVCNN encoders, GCN position decoder, occupancy MLP, the
-DISN image branch."""
+DISN image branch, and the PointNet modules (on no path, for the
+inventory)."""
 
 from .disn import DISNDecoder, DISNEncoder, VGG16Features
 from .disn_port import inject_vgg16, load_vgg16_state_dict
@@ -18,9 +19,16 @@ from .model import (
     sample_grid_features,
     sample_grid_features_lattice,
 )
+from .pointnet import (
+    BallQueryGrouper,
+    PointNetAModule,
+    PointNetFPModule,
+    PointNetSAModule,
+)
 from .pvcnn import PVCNNEncoder, PVConv, SharedMLP
 
 __all__ = [
+    "BallQueryGrouper",
     "BatchNorm",
     "Conv3d",
     "DISNDecoder",
@@ -34,6 +42,9 @@ __all__ = [
     "LatticeAdjacency",
     "MLPDecoder",
     "PVCNNEncoder",
+    "PointNetAModule",
+    "PointNetFPModule",
+    "PointNetSAModule",
     "PVConv",
     "SharedMLP",
     "VGG16Features",

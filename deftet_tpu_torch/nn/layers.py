@@ -11,7 +11,11 @@
   statistics and the BIASED batch variance ``E[x^2] - E[x]^2`` (clipped
   at 0), and updates its running statistics as
   ``momentum * running + (1 - momentum) * batch`` with flax's
-  ``momentum=0.9`` (torch's convention would call that 0.1).
+  ``momentum=0.9`` (torch's convention would call that 0.1).  Under a
+  data-parallel shard (``parallel.sharded``) the statistics are those of
+  the global batch, so the running statistics stay equal on every rank.
+* ``dropout`` draws its mask per example: under a shard, this rank's rows
+  of the mask the one-process step draws.
 * Initialization follows flax: truncated LeCun-normal kernels, zero
   biases, unit BatchNorm scales; every draw comes from the caller's
   ``torch.Generator``.
@@ -24,6 +28,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .. import parallel
 
 # stddev correction of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -99,9 +105,9 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean,
-                              min=0.0)
+            mean, ex2 = global_moments(xf.mean(dim=axes),
+                                       (xf * xf).mean(dim=axes))
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(
@@ -113,6 +119,17 @@ class BatchNorm(nn.Module):
                                   * self.weight)
         y = y + self.bias
         return y.to(self.dtype if self.dtype is not None else y.dtype)
+
+
+def global_moments(mean: torch.Tensor, ex2: torch.Tensor):
+    """(E[x], E[x^2]) of the global batch from this rank's: the mean of
+    the ranks' moments, differentiable (a one-rank group is the identity,
+    bit for bit); themselves in one process."""
+    if parallel.active() is None:
+        return mean, ex2
+    both = parallel.mean_over_shard(torch.stack([mean, ex2]),
+                                    differentiable=True)
+    return both[0], both[1]
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
@@ -133,5 +150,6 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = parallel.draw_rows(x.shape, lambda shape: torch.rand(
+        shape, generator=generator, device=x.device)) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))

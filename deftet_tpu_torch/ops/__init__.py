@@ -1,5 +1,6 @@
-"""Device ops: geometry, voxelization, lattice reductions and the three
-hand-written kernels (stencil, nearest neighbour, triangle argmin)."""
+"""Device ops: geometry, voxelization, lattice reductions, the three
+hand-written kernels (stencil, nearest neighbour, triangle argmin) and the
+PointNet sampling ops (``ops.sampling``, on no path)."""
 
 from ._cuda import launch_counts, reset_launch_counts
 from .nearest import nearest_neighbor, sided_squared_distance

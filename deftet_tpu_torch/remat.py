@@ -23,7 +23,13 @@ Three things make each recompute replay the forward exactly:
   same numbers, and set back after;
 * the buffers of the modules the segment runs (BatchNorm running
   statistics, updated in place in training) are restored after the
-  recompute, so they are updated once.
+  recompute, so they are updated once;
+* the data-parallel shard active in the forward (``parallel.sharded``)
+  is active again in the recompute, which the autograd engine may run on
+  another thread: BatchNorm's all-reduce and the per-example draws then
+  replay as in the forward.  Every rank runs the same segments on the
+  same graph, so the recomputes, and the collectives in them, come in
+  the same order on every rank.
 
 Outside a recording segment, ``saved`` just computes.
 """
@@ -35,6 +41,8 @@ import contextvars
 
 import torch
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
+
+from . import parallel
 
 _TAPE: contextvars.ContextVar = contextvars.ContextVar("remat_tape",
                                                        default=None)
@@ -84,7 +92,7 @@ def _recording(tape, segment):
 
 
 @contextlib.contextmanager
-def _replaying(tape, segment, generator, start_state, modules):
+def _replaying(tape, segment, generator, start_state, modules, shard):
     tape.segment, tape.replaying, tape.cursor = segment, True, {}
     after = generator.get_state() if generator is not None else None
     buffers = [(b, b.detach().clone()) for m in modules for b in m.buffers()]
@@ -92,7 +100,8 @@ def _replaying(tape, segment, generator, start_state, modules):
     try:
         if generator is not None:
             generator.set_state(start_state)
-        yield
+        with parallel.sharded(shard):
+            yield
     finally:
         _TAPE.reset(token)
         if generator is not None:
@@ -106,10 +115,11 @@ def _checkpoint(fn, tape, generator, modules):
     segment = tape.n_segments
     tape.n_segments += 1
     start = generator.get_state() if generator is not None else None
+    shard = parallel.active()
 
     def contexts():
         return (_recording(tape, segment),
-                _replaying(tape, segment, generator, start, modules))
+                _replaying(tape, segment, generator, start, modules, shard))
 
     return _torch_checkpoint(fn, use_reentrant=False, context_fn=contexts,
                              preserve_rng_state=False)

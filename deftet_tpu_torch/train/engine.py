@@ -1,6 +1,7 @@
 """Training engine: the epoch loop, validation, the full-inference
 validation, checkpoints and the metrics log of one experiment, on one
-device (torch port of deftet_tpu/train/engine.py).
+device or data-parallel over a ``parallel.World`` (torch port of
+deftet_tpu/train/engine.py).
 
 ``Engine(config)`` runs on the GPU.  ``device="cpu"`` runs every kernel's
 plain PyTorch version instead, as the tests do.  Asking for CUDA without
@@ -17,6 +18,16 @@ is created at the first write, so an engine that only takes steps writes
 nothing.  A checkpoint holds the model's parameters and BatchNorm
 statistics, the optimizer's moments and count, and the engine's generator,
 so a restored engine draws what the uninterrupted one would.
+
+``Engine(config, world=init_world(...))`` trains data-parallel: rank r
+runs on the world's device for it, takes its rows of every global batch
+(``_prep_batch``), and every step, validation and inference validation
+computes the one-process numbers of the global batch (the step's
+collectives run over the first ``largest_divisor(world.size,
+batch_size)`` ranks; a rank past them is idle and ``fit`` returns at
+once).  The parameters and buffers start as rank 0's.  Only rank 0
+writes (metrics, config, state, checkpoints, OBJs); ``restore`` loads on
+rank 0 and broadcasts to the step's ranks.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import Experiment, TrainConfig
 from ..nn import DeformableTetNetwork
 from ..tetgrid import build_tet_grid, face_lattice_info
@@ -62,8 +74,22 @@ class Engine:
 
     def __init__(self, config: TrainConfig, device="cuda",
                  experiment: Optional[Experiment] = None,
-                 statics: Optional[GridStatics] = None):
+                 statics: Optional[GridStatics] = None,
+                 world: Optional[parallel.World] = None):
         check_supported(config)
+        self.world = world
+        self.shard = None
+        if world is not None:
+            device = world.device
+            self.shard = world.shard(config.batch_size)
+            if self.shard is not None:
+                accum = max(int(config.grad_accum), 1)
+                m, n = config.batch_size // accum, self.shard.size
+                if m % n:
+                    raise ValueError(
+                        f"grad_accum={accum}: a microbatch of {m} rows "
+                        f"(batch_size {config.batch_size}) does not split "
+                        f"over {n} ranks")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -117,6 +143,8 @@ class Engine:
             tree = restore_checkpoint(os.path.join(config.pretrain, "ckpt"),
                                       "best", map_location="cpu")
             self.model.load_state_dict(tree["model"])
+        if world is not None:
+            parallel.replicate(self.model)
         self.optimizer = make_optimizer(config, list(self.model.parameters()))
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed + 1)
@@ -129,26 +157,56 @@ class Engine:
 
     # ------------------------------------------------------------------ util
     @property
+    def is_main(self) -> bool:
+        """True on the rank that writes (rank 0, or the one process)."""
+        return self.world is None or self.world.rank == 0
+
+    @property
+    def idle(self) -> bool:
+        """True on a rank past the divisor clamp: it takes no rows."""
+        return self.world is not None and self.shard is None
+
+    @property
     def experiment(self) -> Experiment:
+        if not self.is_main:
+            raise RuntimeError("only rank 0 writes the experiment")
         if self._experiment is None:
             self._experiment = Experiment.new(self.config)
         return self._experiment
 
     def _log(self, record: Dict) -> None:
+        if not self.is_main:
+            return
         with open(self.experiment.file_path("metrics.jsonl"), "a") as f:
             f.write(json.dumps(record) + "\n")
 
-    def _prep_batch(self, batch: Dict[str, np.ndarray]):
-        """Numeric batch entries as tensors on the engine's device."""
+    def _prep_batch(self, batch: Dict[str, np.ndarray],
+                    microbatches: Optional[int] = None):
+        """Numeric batch entries as tensors on the engine's device; under
+        a world, this rank's rows of the global batch, laid out for
+        ``microbatches`` (default ``grad_accum``: the train step's; the
+        validations pass 1)."""
         out = {}
         for k, v in batch.items():
             if isinstance(v, torch.Tensor):
-                out[k] = v.to(self.device)
+                out[k] = v
             elif isinstance(v, np.ndarray) and (
                     np.issubdtype(v.dtype, np.number)
                     or np.issubdtype(v.dtype, np.bool_)):
-                out[k] = torch.as_tensor(v, device=self.device)
-        return out
+                out[k] = v
+        if self.shard is not None:
+            accum = max(int(self.config.grad_accum), 1)
+            out = parallel.shard_rows(out, self.shard.index, self.shard.size,
+                                      microbatches or accum)
+        return {k: torch.as_tensor(v).to(self.device) for k, v in out.items()}
+
+    def _sharded(self):
+        """The context of one step: this rank's shard of the global batch
+        (nothing in one process)."""
+        if self.idle:
+            raise RuntimeError(f"rank {self.world.rank} takes no part in a "
+                               f"batch of {self.config.batch_size}")
+        return parallel.sharded(self.shard)
 
     def _lattice(self):
         return dict(lattice_offsets=self.lattice_offsets,
@@ -164,18 +222,23 @@ class Engine:
 
     # ----------------------------------------------------------------- train
     def train_step(self, batch, draws=None) -> Dict[str, torch.Tensor]:
-        """One optimizer update on a prepared batch; returns the terms."""
-        terms = train_step(self.model, self.optimizer, batch, self.statics,
-                           self.config, self.generator, draws=draws,
-                           **self._lattice())
+        """One optimizer update on a prepared batch; returns the terms
+        (of the global batch, under a world; ``draws`` then at the global
+        shape)."""
+        with self._sharded():
+            terms = train_step(self.model, self.optimizer, batch,
+                               self.statics, self.config, self.generator,
+                               draws=draws, **self._lattice())
         self.global_step += 1
         return terms
 
     def forward_losses(self, batch, train: bool = True, draws=None):
-        """(total, terms) without an update (for gradients or parity)."""
-        return forward_losses(self.model, batch, self.statics, self.config,
-                              self.generator, train=train, draws=draws,
-                              **self._lattice())
+        """(total, terms) without an update (for gradients or parity);
+        under a world, this rank's part (its rows' means)."""
+        with self._sharded():
+            return forward_losses(self.model, batch, self.statics,
+                                  self.config, self.generator, train=train,
+                                  draws=draws, **self._lattice())
 
     def train_epoch(self, batches: Iterator[Dict[str, np.ndarray]]) -> Dict:
         """One epoch over numpy batches; returns the mean terms.  The sums
@@ -196,13 +259,14 @@ class Engine:
                 if want_log:
                     self._log({"kind": "train", "step": self.global_step,
                                **host})
-                if want_print:
+                if want_print and self.is_main:
                     print(f"step {self.global_step} "
                           f"total={host.get('total', 0.0):.4f} "
                           f"occ={host.get('occ', 0.0):.4f} "
                           f"occ_iou={host.get('occ_iou', 0.0):.4f}",
                           flush=True)
             if (self.config.save_vis and self.config.save_vis_every
+                    and self.is_main
                     and self.global_step % self.config.save_vis_every == 0):
                 self._save_vis(prepped, f"vis_{self.global_step}")
             dev_sums = (dict(terms) if dev_sums is None
@@ -219,11 +283,13 @@ class Engine:
         sums: Dict[str, torch.Tensor] = {}
         n = 0
         for batch in batches:
-            prepped = self._prep_batch(batch)
-            if n == 0 and self.config.save_vis:
+            prepped = self._prep_batch(batch, microbatches=1)
+            if n == 0 and self.config.save_vis and self.is_main:
                 self._save_vis(prepped, f"vis_{self.global_step}")
-            terms = eval_step(self.model, prepped, self.statics, self.config,
-                              self.generator, **self._lattice())
+            with self._sharded():
+                terms = eval_step(self.model, prepped, self.statics,
+                                  self.config, self.generator,
+                                  **self._lattice())
             for k, v in terms.items():
                 sums[k] = sums[k] + v if k in sums else v
             n += 1
@@ -253,8 +319,10 @@ class Engine:
         for batch in batches:
             if "sdf_points" not in batch:
                 return None
-            terms = self.inference_step()(self._prep_batch(batch),
-                                          self.statics, self.generator)
+            prepped = self._prep_batch(batch, microbatches=1)
+            with self._sharded():
+                terms = self.inference_step()(prepped, self.statics,
+                                              self.generator)
             for k, v in terms.items():
                 sums[k] = sums[k] + v if k in sums else v
             n += 1
@@ -267,6 +335,10 @@ class Engine:
 
     # ------------------------------------------------------------ checkpoint
     def save(self, best: bool = False) -> None:
+        """Checkpoint ``last`` (and ``best``) and the state; rank 0
+        only."""
+        if not self.is_main:
+            return
         tree = {
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
@@ -284,15 +356,39 @@ class Engine:
             self.timing.save(self.experiment.file_path("timing.json"))
 
     def restore(self, name: str = "last") -> None:
-        tree = restore_checkpoint(self.experiment.file_path("ckpt"), name,
-                                  map_location="cpu")
-        self.model.load_state_dict(tree["model"])
-        self.optimizer.load_state_dict(tree["optimizer"])
-        self.generator.set_state(tree["generator"])
-        st = self.experiment.read_state()
-        self.epoch = int(st.get("epoch", 0))
-        self.best_iou = float(st.get("best_iou", 0.0))
-        self.global_step = int(st.get("global_step", 0))
+        """Load checkpoint ``name``; under a world, rank 0 loads and
+        broadcasts to the step's ranks (each calls it; an idle rank does
+        nothing)."""
+        if self.idle:
+            return
+        meta = None
+        if self.is_main:
+            tree = restore_checkpoint(self.experiment.file_path("ckpt"),
+                                      name, map_location="cpu")
+            self.model.load_state_dict(tree["model"])
+            self.optimizer.load_state_dict(tree["optimizer"])
+            self.generator.set_state(tree["generator"])
+            st = self.experiment.read_state()
+            meta = {"count": self.optimizer.count,
+                    "generator": self.generator.get_state(),
+                    "epoch": int(st.get("epoch", 0)),
+                    "best_iou": float(st.get("best_iou", 0.0)),
+                    "global_step": int(st.get("global_step", 0))}
+        if self.world is not None:
+            group = self.shard.group
+            parallel.replicate(list(self.model.parameters())
+                               + list(self.model.buffers())
+                               + self.optimizer.mu + self.optimizer.nu,
+                               group=group)
+            box = [meta]
+            torch.distributed.broadcast_object_list(
+                box, src=0, group=group, device=self.device)
+            meta = box[0]
+            self.optimizer.count = meta["count"]
+            self.generator.set_state(meta["generator"])
+        self.epoch = meta["epoch"]
+        self.best_iou = meta["best_iou"]
+        self.global_step = meta["global_step"]
 
     # ------------------------------------------------------------------- fit
     def fit(self, train_iter_fn, val_iter_fn, epochs: Optional[int] = None):
@@ -301,6 +397,8 @@ class Engine:
         inference validation (``occ_iou`` without SDF samples)."""
         epochs = epochs if epochs is not None else self.config.epochs
         history = []
+        if self.idle:
+            return history
         for _ in range(epochs):
             train_means = self.train_epoch(train_iter_fn())
             record = {"epoch": self.epoch, "train": train_means}

@@ -12,6 +12,19 @@ them (``noise``, ``center_idx``, ``bary_u``, ``bary_v``) so a test can
 hand both frameworks the same numbers; with ``grad_accum > 1`` it is a
 list with one such dict per microbatch.
 
+Data parallelism: under an active ``parallel.Shard`` (the Engine opens
+one for a world) each rank runs its rows of the global batch and the step
+computes the one-process step on the global batch.  BatchNorm takes the
+global statistics; the per-example draws (input noise, dropout, the
+chamfer barycentrics) are the rank's rows of the draw at the global shape,
+and injected per-example draws are given at the global (micro)batch shape
+and sliced the same way; ``center_idx`` is batch-wide, the same on every
+rank.  After the microbatch loop the summed gradients are all-reduced in
+one flat buffer and divided by the group's size (the ``psum`` of the JAX
+step), so clipping and Adam see the global gradient on every rank; the
+logged terms are the global batch's (``occ_iou`` from the summed
+intersections and unions).
+
 loss = lambda_occ * occ + lambda_def * (area * volume + edge * edge +
        lap * lap + surf * surface_align + delta * delta + normal * normal
        + amips * amips + chamfer * surf_chamfer)
@@ -25,9 +38,9 @@ import math
 
 import torch
 
-from .. import remat
+from .. import parallel, remat
 from ..config import TrainConfig
-from ..evals.metrics import iou
+from ..evals.metrics import iou_counts
 from ..evals.harness import adjacency_for, face_lattice_for, tet_soa_for
 from ..losses.geometry import (
     amips_energy_soa,
@@ -121,6 +134,13 @@ def make_optimizer(config: TrainConfig, params) -> ClippedAdam:
                        final_scale=config.lr_final_scale)
 
 
+# the injected draws that hold one row per example
+_PER_EXAMPLE_DRAWS = ("noise", "bary_u", "bary_v")
+
+# terms already taken over the global batch inside the forward
+_GLOBAL_TERMS = ("occ_iou",)
+
+
 def _center_subsample_idx(generator, n_tets: int, k: int, device):
     """k random tet indices, with replacement; arange when k >= n_tets."""
     if k >= n_tets:
@@ -142,7 +162,8 @@ def forward_losses(
 ):
     """Full forward.  Returns (total, terms); in training the model's
     BatchNorm running statistics are updated in place."""
-    draws = draws or {}
+    draws = {k: (parallel.rows_of(v) if k in _PER_EXAMPLE_DRAWS else v)
+             for k, v in (draws or {}).items()}
     surface = batch["surface_points"]
     b = surface.shape[0]
     device = surface.device
@@ -157,8 +178,8 @@ def forward_losses(
         if config.add_input_noise:
             noise = draws.get("noise")
             if noise is None:
-                noise = torch.randn(inp.shape, generator=generator,
-                                    device=device)
+                noise = parallel.draw_rows(inp.shape, lambda s: torch.randn(
+                    s, generator=generator, device=device))
             inp = inp + config.input_noise * noise
 
     init_pos = statics.init_pos_nx3[None].expand(b, -1, -1)
@@ -302,12 +323,39 @@ def _losses(batch, statics, config, generator, draws, face_lattice,
         total = total + occ * config.lambda_occ
     if config.lambda_def > 0.0 and not config.finetune_occ:
         total = total + deform * config.lambda_def
-    terms["occ_iou"] = iou(logits, gt_occ, thresh=config.iou_logit_threshold)
+    inter_union = parallel.sum_over_shard(torch.stack(iou_counts(
+        logits, gt_occ, thresh=config.iou_logit_threshold)))
+    terms["occ_iou"] = inter_union[0] / torch.clamp(inter_union[1], min=1.0)
     if boundary_overflow is not None:
         terms["boundary_overflow"] = boundary_overflow
     return total, terms
 
 
+def _global_terms(terms):
+    """The loss terms of the global batch from this rank's: each a mean
+    over equal-size shards (one all-reduce of them all), ``occ_iou``
+    already global; ``terms`` itself in one process."""
+    if parallel.active() is None:
+        return terms
+    keys = [k for k in terms if k not in _GLOBAL_TERMS]
+    means = parallel.mean_over_shard(torch.stack([terms[k].float()
+                                                  for k in keys]))
+    out = dict(terms)
+    for i, k in enumerate(keys):
+        out[k] = means[i].to(terms[k].dtype)
+    return out
+
+
+def _global_grads(grads):
+    """The gradient of the global batch from this rank's (all-reduced in
+    one flat buffer, divided by the group's size); ``grads`` in one
+    process."""
+    if parallel.active() is None:
+        return grads
+    flat = parallel.mean_over_shard(torch.cat([g.reshape(-1)
+                                               for g in grads]))
+    return [part.view_as(g) for part, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
 
 
 def _microbatches(batch, accum: int):
@@ -330,7 +378,10 @@ def train_step(model, optimizer: ClippedAdam, batch, statics: GridStatics,
     gradients are summed then divided by ``a``, the terms averaged, and
     clipping and Adam apply once.  With ``remat`` each microbatch's
     forward segments are recomputed one at a time in its backward
-    (``remat.segmented``)."""
+    (``remat.segmented``).  Under a ``parallel`` shard the batch is this
+    rank's rows (``parallel.shard_rows`` with ``grad_accum``
+    microbatches) and the gradients and terms are reduced over the group
+    before the update (see the module doc)."""
     accum = max(int(config.grad_accum), 1)
     micro = _microbatches(batch, accum) if accum > 1 else [batch]
     if draws is None or isinstance(draws, dict):
@@ -363,8 +414,8 @@ def train_step(model, optimizer: ClippedAdam, batch, statics: GridStatics,
     if accum > 1:
         g_sum = [g / accum for g in g_sum]
         t_sum = {k: v / accum for k, v in t_sum.items()}
-    optimizer.step(g_sum)
-    return t_sum
+    optimizer.step(_global_grads(g_sum))
+    return _global_terms(t_sum)
 
 
 @torch.no_grad()
@@ -378,4 +429,4 @@ def eval_step(model, batch, statics: GridStatics, config: TrainConfig,
         lattice_offsets=lattice_offsets, tet_lattice=tet_lattice,
         face_lattice=face_lattice, draws=draws)
     terms["total"] = total
-    return terms
+    return _global_terms(terms)

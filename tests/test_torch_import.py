@@ -74,6 +74,7 @@ print(json.dumps({
                          if m == "deftet_tpu" or m.startswith("deftet_tpu.")),
     "cuda_initialized": torch.cuda.is_initialized(),
     "libraries_loaded": len(_cuda._libs),
+    "process_group": torch.distributed.is_initialized(),
 }))
 """
 
@@ -87,7 +88,7 @@ def _probe(modules):
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report == {"jax": [], "deftet_tpu": [], "cuda_initialized": False,
-                      "libraries_loaded": 0}
+                      "libraries_loaded": 0, "process_group": False}
 
 
 def test_train_eval_and_cli_modules_import_without_jax():
@@ -96,3 +97,11 @@ def test_train_eval_and_cli_modules_import_without_jax():
 
 def test_render_modules_import_without_jax_or_a_build():
     _probe(RENDER_MODULES)
+
+
+PARALLEL_MODULES = ("parallel", "parallel.mesh", "parallel.spawn", "dryrun",
+                    "ops.sampling", "nn.pointnet", "losses.frustum")
+
+
+def test_parallel_and_dryrun_import_without_jax_or_a_process_group():
+    _probe(PARALLEL_MODULES)
