@@ -18,6 +18,9 @@ Phases, each reporting on lines of its own:
    split 1->8 (not a lattice, read from a .tet file) at the default
    budget and at max_boundary_faces=0 and on the res-4 lattice at budget
    0, then one inference step on the split grid;
+   parity_se — the main cell's encoder (DEFAULT_BLOCKS, batch 4, 5,000
+   points) with squeeze-excitation and without, one forward + backward in
+   float32, card against CPU; the bf16 encoder timed with and without SE;
    lap_step — bench.py's configuration with the lap layer through
    ``Engine``: one warm-up and five timed steps (18 K1 launches each),
    the lap head's K1 inputs kept apart, then K1 checked at them;
@@ -38,7 +41,10 @@ Phases, each reporting on lines of its own:
    grid split 1->8 (750,000 tets, written and read as a .tet file)
    through Engine(config, statics=...): the gather paths, no K1 launch;
    gather_eval — one inference step on that grid at 100,000 points a
-   side; then K2 and K3 checked at the gather step's inputs;
+   side; native_topology — the native (g++) topology builders on that
+   grid: build and host seconds beside numpy's, every array held equal,
+   and one step on statics from each topology (K2 and K3 once, no K1);
+   then K2 and K3 checked at the gather step's inputs;
 5. kernels — each kernel on the inputs the main path gave it, held
    against its plain version on the card and timed beside its bound and
    the nearest single PyTorch call (every K1 variant of the step, with
@@ -1516,14 +1522,19 @@ def gather_step():
     """bench.py's configuration on the split grid (not a lattice) through
     ``Engine(config, statics=build_grid_statics(50, grid=...))``: one
     warm-up and five timed steps, no K1 launch (the padded gathers), K2
-    and K3 once each; the set-up seconds, and the step beside the lattice
-    step's at the same widths.  Returns the kernels' inputs and the
-    engine (for gather_eval)."""
+    and K3 once each; the set-up seconds (``build_topology`` among them),
+    and the step beside the lattice step's at the same widths.  Returns
+    the kernels' inputs, the engine (for gather_eval) and (grid, its numpy
+    topology, that topology's seconds) for native_topology."""
+    from deftet_tpu_torch.tetgrid import build_topology
     from deftet_tpu_torch.train import build_grid_statics
 
     grid, io_s = split_grid_50()
     t = time.perf_counter()
-    statics = build_grid_statics(50, grid=grid, device=DEVICE)
+    topology = build_topology(grid.tets, grid.n_vertices)
+    topology_s = time.perf_counter() - t
+    statics = build_grid_statics(50, grid=grid, topology=topology,
+                                 device=DEVICE)
     torch.cuda.synchronize()
     statics_s = time.perf_counter() - t
     inputs, launches, _, engine = main_path(
@@ -1531,7 +1542,7 @@ def gather_step():
         label="gather_step", statics=statics)
     st = engine.statics
     say("gather_setup", **io_s, build_grid_statics_s=statics_s,
-        vertices=st.n_vertices, tets=st.n_tets,
+        build_topology_s=topology_s, vertices=st.n_vertices, tets=st.n_tets,
         faces=int(st.face_fx3.shape[0]),
         adjacency_width=int(st.vert_adj_idx.shape[1]),
         vertex_tet_width=int(st.vert_tet_inc_idx.shape[1]),
@@ -1540,7 +1551,7 @@ def gather_step():
     if engine.lattice_offsets is not None or st.n_tets != 750_000:
         raise AssertionError("gather_step did not run a non-lattice grid")
     gather_determinism(st)
-    return inputs, launches, engine
+    return inputs, launches, engine, (grid, topology, topology_s)
 
 
 def gather_determinism(st):
@@ -1655,6 +1666,220 @@ def check_gather_kernels(inputs):
         "tri_argmin": check_tri_argmin(inputs[("tri_argmin",)],
                                        label="kernel_tri_gather"),
     }
+
+
+def _pair_keys(topo):
+    """The edge-face pairs of ``topo`` as sorted int64 keys fa * F + fb."""
+    f = np.int64(topo.face_fx3.shape[0])
+    return np.sort(topo.edge_pair_fa.astype(np.int64) * f
+                   + topo.edge_pair_fb.astype(np.int64))
+
+
+def native_topology(grid, numpy_topo, numpy_s, numpy_statics):
+    """The native (g++) topology builders on the gather step's 750,000-tet
+    split grid, on the card machine's host: the library's build and
+    ``build_topology_native``'s seconds beside the numpy ``build_topology``
+    (``numpy_s``, built once by gather_step), every ``Topology`` field held
+    equal array for array (the edge-face pairs as sorted pair sets: the
+    native builder lists them by edge); then one train step of
+    bench.py's configuration on statics built from each topology, from
+    the same parameters and injected draws with deterministic algorithms
+    on: terms equal bit for bit where every array (pair order included)
+    is equal, else each within relative 1e-4.  K2 and K3 launch once in
+    the native-statics step, K1 never."""
+    import warnings
+
+    from deftet_tpu_torch.native import build as native_build
+    from deftet_tpu_torch.native import build_topology_native
+    from deftet_tpu_torch.ops import _cuda
+    from deftet_tpu_torch.train import Engine, build_grid_statics
+
+    t = time.perf_counter()
+    native_build.build_library("topology", force=True)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    topo = build_topology_native(grid.tets, grid.n_vertices)
+    native_s = time.perf_counter() - t
+
+    differ, pairs_same_order = [], None
+    for field in dataclasses.fields(topo):
+        a, b = getattr(topo, field.name), getattr(numpy_topo, field.name)
+        if not isinstance(a, np.ndarray):
+            if a != b:
+                differ.append(field.name)
+            continue
+        same = a.dtype == b.dtype and a.shape == b.shape and \
+            np.array_equal(a, b)
+        if field.name in ("edge_pair_fa", "edge_pair_fb"):
+            pairs_same_order = bool(same) and pairs_same_order is not False
+            continue
+        if not same:
+            differ.append(field.name)
+    pairs_same_set = np.array_equal(_pair_keys(topo), _pair_keys(numpy_topo))
+    if not pairs_same_set:
+        differ.append("edge_pair_fa/fb (as a set)")
+
+    t = time.perf_counter()
+    statics = build_grid_statics(50, grid=grid, topology=topo, device=DEVICE)
+    torch.cuda.synchronize()
+    statics_s = time.perf_counter() - t
+    statics_same = all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and torch.equal(x, y))
+        for x, y in zip(statics, numpy_statics))
+
+    cfg = bench_config()
+    batch = bench_batch(cfg)
+    draws = step_draws(cfg, np.random.default_rng(17), cfg.batch_size)
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    state, terms, launches = None, {}, None
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for label, st in (("numpy", numpy_statics), ("native", statics),
+                              ("numpy_again", numpy_statics)):
+                engine = Engine(cfg, device=DEVICE, statics=st)
+                if state is None:
+                    state = {n: v.clone() for n, v in
+                             engine.model.state_dict().items()}
+                engine.model.load_state_dict(state)
+                prepped = engine._prep_batch(batch)
+                _cuda.reset_launch_counts()
+                out = engine.train_step(prepped,
+                                        draws=on_device(draws, DEVICE))
+                torch.cuda.synchronize()
+                if label == "native":
+                    launches = dict(_cuda.launch_counts)
+                terms[label] = {n: float(v) for n, v in out.items()}
+                del engine, prepped
+                if label == "native" and terms["native"] == terms["numpy"]:
+                    break
+    finally:
+        torch.use_deterministic_algorithms(prev[0])
+        torch.backends.cudnn.deterministic = prev[1]
+    del statics
+    torch.cuda.empty_cache()
+
+    all_equal = not differ and pairs_same_order
+    bitwise = terms["native"] == terms["numpy"]
+    worst = max(abs(terms["native"][n] - v) / max(abs(v), 1e-30)
+                for n, v in terms["numpy"].items())
+    say("native_topology", tets=int(topo.n_tets), faces=int(
+        topo.face_fx3.shape[0]), pairs=int(topo.edge_pair_fa.shape[0]),
+        gxx_build_s=build_s, build_topology_native_s=native_s,
+        build_topology_numpy_s=numpy_s, native_statics_s=statics_s,
+        fields_differ=differ, pairs_same_set=bool(pairs_same_set),
+        pairs_same_order=bool(pairs_same_order),
+        statics_equal=bool(statics_same), terms_numpy=terms["numpy"],
+        terms_native=terms["native"], terms_bitwise=bitwise,
+        numpy_repeat_bitwise=(terms["numpy_again"] == terms["numpy"]
+                              if "numpy_again" in terms else None),
+        worst_term_rel=worst, launches=launches,
+        note="host seconds on the card machine's CPU")
+    if differ:
+        raise AssertionError(f"native topology differs from numpy: {differ}")
+    if launches != GATHER_LAUNCHES:
+        raise AssertionError(f"native-statics step launched {launches}")
+    if all_equal and not bitwise and \
+            terms.get("numpy_again") == terms["numpy"]:
+        raise AssertionError("equal topologies, but the steps' terms differ")
+    if not worst <= 1e-4:
+        raise AssertionError(f"native-statics step terms off by {worst}")
+
+
+def encoder_pass(model, pts, cots):
+    """One train-mode forward of a PVCNN encoder and the backward of the
+    loss sum_i mean(pyramid_i * cot_i); returns the pyramid."""
+    model.zero_grad(set_to_none=True)
+    pyramid = model(pts, True)
+    sum((v * c).mean() for v, c in zip(pyramid, cots)).backward()
+    return pyramid
+
+
+def parity_se(devices=("cpu", DEVICE)):
+    """The main cell's encoder (DEFAULT_BLOCKS, batch 4, 5,000 points)
+    with squeeze-excitation (``with_se=True``), and without it for
+    comparison: one train-mode forward and backward on the card against
+    the CPU from the same parameters, in float32 (TF32 off), at
+    ``parity``'s tolerances: every parameter gradient and running
+    statistic as its gradients (rtol 1e-3 / atol 1e-5), the pyramid as its
+    terms at rtol 1e-4, with an atol of 1e-4 of each level's largest
+    magnitude (its entries cross 0 after BatchNorm, and the two devices
+    sum the up to 13,824-term float32 convolutions in other orders: the
+    phase prints how far apart, with and without SE); then, on the card,
+    the bf16 encoder's forward + backward time with and without SE (the
+    main cell's precision)."""
+    from deftet_tpu_torch.nn.pvcnn import DEFAULT_BLOCKS, PVCNNEncoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(13)
+    pts_np = rng.uniform(-0.45, 0.45, (4, 5000, 3)).astype(np.float32)
+    cots_np = [rng.normal(size=(4, r, r, r, c)).astype(np.float32)
+               for c, nb, r in DEFAULT_BLOCKS for _ in range(nb)]
+
+    def make(device, dtype=None, with_se=True):
+        return PVCNNEncoder(DEFAULT_BLOCKS, dtype=dtype, with_se=with_se,
+                            generator=torch.Generator().manual_seed(0)
+                            ).to(device)
+
+    report, failed = {}, []
+    for with_se in (True, False):
+        runs = {}
+        for device in devices:
+            model = make(device, with_se=with_se)
+            pts = torch.tensor(pts_np, device=device)
+            cots = [torch.tensor(c, device=device) for c in cots_np]
+            pyramid = encoder_pass(model, pts, cots)
+            runs[device] = (
+                [v.detach().cpu() for v in pyramid],
+                {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                 .detach().cpu() for n, p in model.named_parameters()},
+                {n: b.detach().cpu().clone()
+                 for n, b in model.named_buffers()})
+            del model, pyramid
+        (p_ref, g_ref, s_ref), (p_got, g_got, s_got) = (runs[d]
+                                                        for d in devices)
+        row = {
+            "worst_pyramid_ratio": max(
+                ratio(g, r, 1e-4, 1e-4 * float(r.abs().max()))
+                for g, r in zip(p_got, p_ref)),
+            "worst_grad_ratio": max(ratio(g_got[n], g, 1e-3, 1e-5)
+                                    for n, g in g_ref.items()),
+            "worst_stat_ratio": max(ratio(s_got[n], v, 1e-3, 1e-5)
+                                    for n, v in s_ref.items()),
+            "pyramid_max_abs_diff": [float((g - r).abs().max())
+                                     for g, r in zip(p_got, p_ref)],
+            "pyramid_max_abs": [float(r.abs().max()) for r in p_ref],
+            "se_weights": sum(".SE3d_0." in n for n in g_ref),
+        }
+        report["with_se" if with_se else "without_se"] = row
+        if row["se_weights"] != (8 if with_se else 0) or not max(
+                row["worst_pyramid_ratio"], row["worst_grad_ratio"],
+                row["worst_stat_ratio"]) <= 1.0:
+            failed.append(("with_se" if with_se else "without_se", row))
+
+    ms = {}
+    if torch.device(devices[-1]).type == "cuda":
+        pts = torch.tensor(pts_np, device=devices[-1])
+        cots = [torch.tensor(c, device=devices[-1]) for c in cots_np]
+        for with_se in (False, True):
+            model = make(devices[-1], torch.bfloat16, with_se)
+            out = encoder_pass(model, pts, cots)
+            if not all(bool(torch.isfinite(v).all()) for v in out):
+                raise AssertionError("parity_se: non-finite bf16 pyramid")
+            ms["with_se" if with_se else "without_se"] = cuda_ms(
+                lambda: encoder_pass(model, pts, cots), reps=10)
+            del model, out
+        torch.cuda.empty_cache()
+    say("parity_se", shape="batch 4, 5,000 points, DEFAULT_BLOCKS",
+        f32_card_against_cpu=report, bf16_forward_backward_ms=ms)
+    if failed:
+        raise AssertionError(f"parity_se failed (ratios must be <= 1, 8 SE "
+                             f"weights with SE, none without): {failed}")
 
 
 def small_split_statics():
@@ -3207,6 +3432,7 @@ def main() -> int:
     timed("parity_eval", parity_eval)
     timed("parity_lap_disn", parity_lap_disn)
     timed("parity_gather", parity_gather)
+    timed("parity_se", parity_se)
     lap_inputs, lap_launches, lap_per_variant = timed("lap_step", lap_step)
     lap_kernels = timed("lap_kernels", check_lap_kernels, lap_inputs,
                         lap_per_variant)
@@ -3234,9 +3460,11 @@ def main() -> int:
     unc_kernels = timed("uncompacted_kernels", check_uncompacted_kernels,
                         unc_inputs)
     del unc_inputs
-    g_inputs, g_launches, g_engine = timed("gather_step", gather_step)
+    g_inputs, g_launches, g_engine, g_topology = timed("gather_step",
+                                                       gather_step)
     timed("gather_eval", gather_eval, g_engine, ev_data)
-    del g_engine
+    timed("native_topology", native_topology, *g_topology, g_engine.statics)
+    del g_engine, g_topology
     torch.cuda.empty_cache()
     g_kernels = timed("gather_kernels", check_gather_kernels, g_inputs)
     del g_inputs

@@ -9,6 +9,8 @@ it.
 Sub-packages mirror the JAX package:
 
 * ``tetgrid`` — numpy grid / lattice-face builders (own copies).
+* ``native``  — the same topology builders in C++ (``native/topology.cpp``,
+  compiled by g++ at first use, loaded with ctypes).
 * ``data``    — procedural shapes, the occupancy texture, the synthetic
   dataset, mesh-directory ingestion (watertight remesh) and the DISN
   images (own copies).
@@ -16,7 +18,7 @@ Sub-packages mirror the JAX package:
   the PointNet sampling ops, and the three kernels: the lattice stencil
   (``ops.stencil``), nearest neighbour (``ops.nearest``) and triangle
   argmin (``ops.tri_distance``).
-* ``nn``      — PVCNN encoders, GCN position decoder (and its lap
+* ``nn``      — PVCNN encoders (optional squeeze-excitation), GCN position decoder (and its lap
   refinement head), occupancy MLP, the DISN image branch and its offline
   VGG-16 loader.
 * ``losses``  — SoA tet regularizers and the compacted surface losses.
@@ -37,7 +39,8 @@ Sub-packages mirror the JAX package:
   step on n ranks (``dryrun_multidevice``).
 
 Importing the package compiles nothing and does not touch CUDA; kernels
-are built from ``csrc/`` with ``nvcc`` at their first launch.
+are built from ``csrc/`` with ``nvcc`` at their first launch, the native
+builders with ``g++`` at their first call.
 """
 
 __version__ = "0.1.0"

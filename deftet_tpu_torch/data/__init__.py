@@ -12,7 +12,16 @@ from .pipeline import (
     occupancy_grid,
     sample_surface,
 )
-from .shapes import random_shape, shape_family
+from .shapes import (
+    icosphere,
+    make_blob,
+    make_box,
+    make_ellipsoid,
+    make_torus,
+    normalize_mesh,
+    random_shape,
+    shape_family,
+)
 
 __all__ = [
     "OCC_GRID_EXTENT",
@@ -20,8 +29,14 @@ __all__ = [
     "batch_iterator",
     "build_dataset",
     "build_dataset_from_meshes",
+    "icosphere",
+    "make_blob",
+    "make_box",
+    "make_ellipsoid",
     "make_example",
+    "make_torus",
     "mesh_sdf_points",
+    "normalize_mesh",
     "occupancy_grid",
     "random_shape",
     "sample_surface",

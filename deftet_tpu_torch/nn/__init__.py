@@ -1,9 +1,9 @@
-"""Networks: PVCNN encoders, GCN position decoder, occupancy MLP, the
-DISN image branch, and the PointNet modules (on no path, for the
-inventory)."""
+"""Networks: PVCNN encoders (with optional squeeze-excitation), GCN
+position decoder, occupancy MLP, the DISN image branch, and the PointNet
+modules (on no path, for the inventory)."""
 
 from .disn import DISNDecoder, DISNEncoder, VGG16Features
-from .disn_port import inject_vgg16, load_vgg16_state_dict
+from .disn_port import inject_vgg16, load_vgg16_params, load_vgg16_state_dict
 from .gcn import (
     GCNMLPDecoder,
     GraphConv,
@@ -25,7 +25,7 @@ from .pointnet import (
     PointNetFPModule,
     PointNetSAModule,
 )
-from .pvcnn import PVCNNEncoder, PVConv, SharedMLP
+from .pvcnn import PVCNNEncoder, PVConv, SE3d, SharedMLP, voxelize_coords
 
 __all__ = [
     "BallQueryGrouper",
@@ -46,11 +46,14 @@ __all__ = [
     "PointNetFPModule",
     "PointNetSAModule",
     "PVConv",
+    "SE3d",
     "SharedMLP",
     "VGG16Features",
     "VertexAdjacency",
     "inject_vgg16",
+    "load_vgg16_params",
     "load_vgg16_state_dict",
     "sample_grid_features",
     "sample_grid_features_lattice",
+    "voxelize_coords",
 ]

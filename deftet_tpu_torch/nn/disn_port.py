@@ -50,6 +50,12 @@ def vgg16_state_dict(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def load_vgg16_params(path: str) -> Dict[str, torch.Tensor]:
+    """``VGG16Features``' state dict from a torch-saved torchvision VGG-16
+    (the JAX package's function of this name returns its flax params)."""
+    return vgg16_state_dict(load_vgg16_state_dict(path))
+
+
 def inject_vgg16(model: torch.nn.Module, state: Dict[str, torch.Tensor],
                  encoder: str = "encoder_pos") -> None:
     """Copy a torchvision VGG-16 state dict into ``model.<encoder>``'s

@@ -45,20 +45,24 @@ def _compute_dtype(dtype, x: torch.Tensor, w: torch.Tensor):
 
 
 class Dense(nn.Module):
-    """y = x W^T + b on the last axis; ``weight`` is (out, in)."""
+    """y = x W^T + b on the last axis; ``weight`` is (out, in).  With
+    ``use_bias=False`` there is no ``bias`` parameter (flax's
+    ``use_bias=False``)."""
 
     def __init__(self, in_features: int, out_features: int, dtype=None,
-                 generator=None):
+                 generator=None, use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = (nn.Parameter(torch.zeros(out_features)) if use_bias
+                     else None)
         _lecun_normal_(self.weight.data, in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.dtype, x, self.weight)
+        y = F.linear(x.to(dt), self.weight.to(dt))
         # the bias is added to the product rounded to dt, as flax adds it
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class Conv3d(nn.Module):
@@ -139,6 +143,27 @@ def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
     slope stays a Python number: no host-to-device copy."""
     slope = float(torch.tensor(negative_slope, dtype=x.dtype))
     return torch.where(x >= 0, x, x * slope)
+
+
+class _Sigmoid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.reciprocal(1.0 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1.0 - y))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.sigmoid as JAX lowers it (there is no HLO logistic op):
+    ``1 / (1 + exp(-x))`` in x's dtype, so a bf16 x is rounded after the
+    exp, the add and the division (torch's own sigmoid rounds once); its
+    gradient is JAX's rule ``g * (y * (1 - y))``, rounded at each op."""
+    return _Sigmoid.apply(x)
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,

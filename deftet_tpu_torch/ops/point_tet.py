@@ -70,6 +70,15 @@ def points_in_tets_soa(soa, query_bxpx3: torch.Tensor, chunk: int = 4096,
                        found).to(torch.int32)
 
 
+def points_in_tets(tet_pos_bxtx4x3: torch.Tensor, query_bxpx3: torch.Tensor,
+                   chunk: int = 4096, query_chunk: int = 4096) -> torch.Tensor:
+    """``points_in_tets_soa`` on the corner tensor (B, T, 4, 3), detached
+    and in float32 (prefer the SoA form, which needs no corner tensor)."""
+    t = tet_pos_bxtx4x3.detach().float()
+    soa = [[t[:, :, k, c] for c in range(3)] for k in range(4)]
+    return points_in_tets_soa(soa, query_bxpx3, chunk, query_chunk)
+
+
 def paste_occupancy(tet_occ_bxt: torch.Tensor,
                     condition_bxp: torch.Tensor) -> torch.Tensor:
     """Per-tet occupancy at each point's containing tet; a point outside

@@ -86,6 +86,16 @@ def _trilinear_scalar_soa(grid_bxgxgxg, cx, cy, cz):
     return out
 
 
+def occupancy_from_grid(occ_grid_bxgxgxg: torch.Tensor,
+                        points_bxpx3: torch.Tensor,
+                        threshold: float = 0.5) -> torch.Tensor:
+    """``occupancy_from_grid_soa`` at (B, P, 3) points, "nearest"."""
+    pts = points_bxpx3.detach()
+    return occupancy_from_grid_soa(occ_grid_bxgxgxg, pts[..., 0],
+                                   pts[..., 1], pts[..., 2],
+                                   threshold=threshold)
+
+
 @torch.no_grad()
 def occupancy_from_grid_soa(occ_grid_bxgxgxg, x_bxp, y_bxp, z_bxp,
                             threshold: float = 0.5,

@@ -216,6 +216,21 @@ def build_lattice_faces(r: int):
     return face_fx3, face_tet, face_slot, valid, hull
 
 
+def face_valid_mask(r: int) -> np.ndarray:
+    """(12, r, r, r) bool: the class-major face slots whose partner cell
+    lies on the grid."""
+    out = np.empty((12, r, r, r), bool)
+    idx = np.arange(r)
+    for c, fc in enumerate(face_class_table()):
+        m = np.ones((r, r, r), bool)
+        for ax, d in enumerate(fc.delta):
+            shape = [1, 1, 1]
+            shape[ax] = r
+            m &= ((idx + d >= 0) & (idx + d < r)).reshape(shape)
+        out[c] = m
+    return out
+
+
 def build_lattice_edge_arrays(r: int):
     """Edge -> face incidence and face -> edge ids of the class-major
     layout by arithmetic on the class tables (no sort over the 3F edge

@@ -1,6 +1,6 @@
 """Train step, optimizer, statics, checkpoints and the engine."""
 
-from .checkpoint import restore_checkpoint, save_checkpoint
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .engine import Engine
 from .statics import (
     GridStatics,
@@ -23,6 +23,7 @@ __all__ = [
     "build_grid_statics",
     "eval_step",
     "forward_losses",
+    "latest_step",
     "lattice_offsets",
     "lattice_tet_offsets",
     "make_optimizer",

@@ -10,7 +10,7 @@ the previous checkpoint whole.
 from __future__ import annotations
 
 import os
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -34,3 +34,13 @@ def restore_checkpoint(directory: str, name: str, map_location=None) -> Any:
     containers only)."""
     return torch.load(checkpoint_path(directory, name),
                       map_location=map_location, weights_only=True)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """The largest integer-named checkpoint (``{step}.pt``) in
+    ``directory``, else None (also for a missing directory)."""
+    if not os.path.isdir(directory):
+        return None
+    steps = [int(f[:-3]) for f in os.listdir(directory)
+             if f.endswith(".pt") and f[:-3].isdigit()]
+    return max(steps) if steps else None
