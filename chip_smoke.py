@@ -44,6 +44,9 @@ Phases, each reporting on lines of its own:
    side; native_topology — the native (g++) topology builders on that
    grid: build and host seconds beside numpy's, every array held equal,
    and one step on statics from each topology (K2 and K3 once, no K1);
+   lattice_statics — the res-50 lattice topology through the native and
+   the numpy builders, with and without the face arrays: host seconds,
+   every field equal, and the builders ``build_grid_statics`` took;
    then K2 and K3 checked at the gather step's inputs;
 5. kernels — each kernel on the inputs the main path gave it, held
    against its plain version on the card and timed beside its bound and
@@ -80,6 +83,8 @@ Phases, each reporting on lines of its own:
    version at each path's inputs, the first and the last training call
    among them, and at edge cases, timed against its bound); render_cli
    (``cli render`` in a subprocess);
+   campaigns — ``scripts/torch_{disn,hard_geom,render}_campaign.py`` at
+   toy sizes, at once in subprocesses: exit 0 and finite metrics;
 9. the ``{"kernels": [...]}`` line (one entry per kernel and path), then
    the result line ``{"ok": true, "device": {...}}``.
 
@@ -1675,6 +1680,31 @@ def _pair_keys(topo):
                    + topo.edge_pair_fb.astype(np.int64))
 
 
+def topology_differences(got, ref):
+    """(fields of two ``Topology`` values that differ in dtype, shape or
+    value, whether their edge-face pairs are in the same order): the pairs
+    are held as sorted pair sets, the native builders listing them by
+    edge.  Fields that neither built (None) are equal."""
+    differ, pairs_same_order = [], None
+    for field in dataclasses.fields(got):
+        a, b = getattr(got, field.name), getattr(ref, field.name)
+        arrays = isinstance(a, np.ndarray), isinstance(b, np.ndarray)
+        if all(arrays):
+            same = (a.dtype == b.dtype and a.shape == b.shape
+                    and np.array_equal(a, b))
+        else:
+            same = not any(arrays) and a == b  # counts, or None for both
+        if field.name in ("edge_pair_fa", "edge_pair_fb") and \
+                got.edge_pair_fa is not None:
+            pairs_same_order = bool(same) and pairs_same_order is not False
+        elif not same:
+            differ.append(field.name)
+    if got.edge_pair_fa is not None and not np.array_equal(
+            _pair_keys(got), _pair_keys(ref)):
+        differ.append("edge_pair_fa/fb (as a set)")
+    return differ, pairs_same_order
+
+
 def native_topology(grid, numpy_topo, numpy_s, numpy_statics):
     """The native (g++) topology builders on the gather step's 750,000-tet
     split grid, on the card machine's host: the library's build and
@@ -1701,23 +1731,8 @@ def native_topology(grid, numpy_topo, numpy_s, numpy_statics):
     topo = build_topology_native(grid.tets, grid.n_vertices)
     native_s = time.perf_counter() - t
 
-    differ, pairs_same_order = [], None
-    for field in dataclasses.fields(topo):
-        a, b = getattr(topo, field.name), getattr(numpy_topo, field.name)
-        if not isinstance(a, np.ndarray):
-            if a != b:
-                differ.append(field.name)
-            continue
-        same = a.dtype == b.dtype and a.shape == b.shape and \
-            np.array_equal(a, b)
-        if field.name in ("edge_pair_fa", "edge_pair_fb"):
-            pairs_same_order = bool(same) and pairs_same_order is not False
-            continue
-        if not same:
-            differ.append(field.name)
-    pairs_same_set = np.array_equal(_pair_keys(topo), _pair_keys(numpy_topo))
-    if not pairs_same_set:
-        differ.append("edge_pair_fa/fb (as a set)")
+    differ, pairs_same_order = topology_differences(topo, numpy_topo)
+    pairs_same_set = "edge_pair_fa/fb (as a set)" not in differ
 
     t = time.perf_counter()
     statics = build_grid_statics(50, grid=grid, topology=topo, device=DEVICE)
@@ -1788,6 +1803,75 @@ def native_topology(grid, numpy_topo, numpy_s, numpy_statics):
         raise AssertionError("equal topologies, but the steps' terms differ")
     if not worst <= 1e-4:
         raise AssertionError(f"native-statics step terms off by {worst}")
+
+
+def lattice_statics(res=50):
+    """The res-``res`` lattice topology through ``build_lattice_topology``'s
+    dispatch (the native builders, since g++ is on the path) and through
+    its numpy builders (``native_available`` made false for the call),
+    each with and without the face arrays: host seconds of each on the
+    card machine's CPU, every field held equal (dtype, shape, values; the
+    edge-face pairs as sorted pair sets, the native builder listing them
+    by edge).  Then which builders ``build_grid_statics`` took, and its
+    seconds.  The g++ build is native_topology's and is not timed here."""
+    from deftet_tpu_torch.native import build as native_build
+    from deftet_tpu_torch.native import topology as native
+    from deftet_tpu_torch.tetgrid import build_lattice_topology, build_tet_grid
+    from deftet_tpu_torch.train import build_grid_statics
+
+    if not native_build.native_available():
+        raise AssertionError("no g++ on the card machine: the statics cannot "
+                             "take the native builders")
+    native_build.load_library("topology")
+    grid = build_tet_grid(res)
+    available = native_build.native_available
+    seconds, topos = {}, {}
+    for face_arrays in (True, False):
+        for path in ("native", "numpy"):
+            if path == "numpy":
+                native_build.native_available = lambda: False
+            try:
+                t = time.perf_counter()
+                topos[path, face_arrays] = build_lattice_topology(
+                    grid, face_arrays=face_arrays)
+                key = "with" if face_arrays else "without"
+                seconds[f"{path}_{key}_face_arrays_s"] = (
+                    time.perf_counter() - t)
+            finally:
+                native_build.native_available = available
+    differ, pairs_same_order = topology_differences(topos["native", True],
+                                                    topos["numpy", True])
+    differ += [f"{name} (without face arrays)" for name in
+               topology_differences(topos["native", False],
+                                    topos["numpy", False])[0]]
+    del topos
+
+    calls = []
+    counted = native.build_vertex_adjacency_native
+
+    def counting(*args):
+        calls.append(1)
+        return counted(*args)
+
+    native.build_vertex_adjacency_native = counting
+    try:
+        t = time.perf_counter()
+        statics = build_grid_statics(res, grid=grid, device=DEVICE)
+        torch.cuda.synchronize()
+        statics_s = time.perf_counter() - t
+    finally:
+        native.build_vertex_adjacency_native = counted
+    path = "native" if calls else "numpy"
+    del statics
+    say("lattice_statics", res=res, tets=int(grid.n_tets), **seconds,
+        build_grid_statics_s=statics_s, build_grid_statics_path=path,
+        fields_differ=differ, pairs_same_order=pairs_same_order,
+        note="host seconds on the card machine's CPU")
+    if differ:
+        raise AssertionError(f"native lattice topology differs: {differ}")
+    if path != "native":
+        raise AssertionError("build_grid_statics took the numpy builders "
+                             "with g++ on the path")
 
 
 def encoder_pass(model, pts, cots):
@@ -2469,6 +2553,90 @@ def cli_phase():
         preprocess_s=preprocess_s, shards=shards, disn_train_s=disn_train_s,
         disn_eval_s=disn_eval_s, disn_files=files,
         disn_metrics=disn_report["metrics"])
+
+
+# The three campaign drivers at toy sizes: each trains (or optimizes) for
+# a few steps on the card in a subprocess and writes its metrics.
+CAMPAIGNS = {
+    "disn": ["torch_disn_campaign.py", "--res", "8", "--epochs", "2",
+             "--n_shapes", "8", "--disn_width", "0.125",
+             "--eval_points", "2000"],
+    # three meshes: a batch of 2 leaves a full validation batch
+    "hard_geom": ["torch_hard_geom_campaign.py", "--res", "8",
+                  "--batch_size", "2", "--epochs", "2", "--n_aug", "1",
+                  "--eval_points", "2000",
+                  "--extra", "--watertight_res 32"],
+    # stages start while less than budget - reserve - 60 s has passed
+    "render": ["torch_render_campaign.py", "--tetres", "8", "--n_views", "8",
+               "--image_size", "64", "--sublevels", "1", "--steps_mov", "20",
+               "--steps_fix", "20", "--budget_s", "150", "--reserve_s", "30",
+               "--min_stage_s", "10"],
+}
+
+
+def campaigns_phase(timeout=600):
+    """``scripts/torch_{disn,hard_geom,render}_campaign.py`` on the card at
+    toy sizes, the three at once in subprocesses: each exits 0, the two
+    training drivers write a ``result_update.json`` with every metric
+    finite, the render driver a ``records.json`` whose stages and
+    ``final_psnr`` are finite."""
+    import os
+    import shutil
+    import signal
+
+    work = ROOT / "build" / "smoke_campaigns"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    procs = {}
+    try:
+        for name, (script, *args) in CAMPAIGNS.items():
+            out = work / name
+            log = open(work / f"{name}.log", "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, str(ROOT / "scripts" / script), "--device",
+                 DEVICE, *args, "--outdir", str(out)], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT, start_new_session=True), log,
+                time.perf_counter())
+        seconds, rcs, t0 = {}, {}, time.perf_counter()
+        while len(rcs) < len(procs):
+            if time.perf_counter() - t0 > timeout:
+                raise TimeoutError(f"campaign drivers still running after "
+                                   f"{timeout} s: {set(procs) - set(rcs)}")
+            for name, (proc, _, t) in procs.items():
+                if name not in rcs and proc.poll() is not None:
+                    rcs[name] = proc.returncode
+                    seconds[name] = time.perf_counter() - t
+            time.sleep(0.2)
+    finally:
+        # each driver's group: the driver and the CLI processes it started
+        for proc, log, _ in procs.values():
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+            log.close()
+    failed = {n: rc for n, rc in rcs.items() if rc}
+    if failed:
+        tails = {n: (work / f"{n}.log").read_text()[-3000:] for n in failed}
+        raise RuntimeError(f"campaign drivers failed: {failed}\n{tails}")
+    metrics = {}
+    for name in ("disn", "hard_geom"):
+        (exp,) = (work / name / "exp").iterdir()
+        m = json.loads((exp / "result_update.json").read_text())["metrics"]
+        bad = [n for n in METRICS if not np.isfinite(m.get(n, np.nan))]
+        if bad:
+            raise AssertionError(f"{name} campaign: metrics {bad} not "
+                                 f"finite: {m}")
+        metrics[name] = {n: m[n] for n in METRICS}
+    records = json.loads((work / "render" / "records.json").read_text())
+    psnrs = [s["psnr"] for s in records["stages"]]
+    if not psnrs or not np.isfinite(psnrs + [records["final_psnr"]]).all():
+        raise AssertionError(f"render campaign records: {records}")
+    metrics["render"] = {"final_psnr": records["final_psnr"],
+                         "stages": {s["stage"]: s["psnr"]
+                                    for s in records["stages"]}}
+    say("campaigns", seconds=seconds, metrics=metrics)
 
 
 # ------------------------------------------------------------ the renderer
@@ -3464,6 +3632,7 @@ def main() -> int:
                                                        gather_step)
     timed("gather_eval", gather_eval, g_engine, ev_data)
     timed("native_topology", native_topology, *g_topology, g_engine.statics)
+    timed("lattice_statics", lattice_statics)
     del g_engine, g_topology
     torch.cuda.empty_cache()
     g_kernels = timed("gather_kernels", check_gather_kernels, g_inputs)
@@ -3497,6 +3666,7 @@ def main() -> int:
     })
     timed("raster_edge_cases", check_raster_edge_cases)
     timed("render_cli", render_cli)
+    timed("campaigns", campaigns_phase)
 
     kernels = []
     for name, res in results.items():

@@ -183,6 +183,20 @@ def _write_reports(experiment: Experiment, report: dict, suffix: str) -> None:
             f.write(f"{100 * sum(vals) / len(vals):2.3f} &\n")
 
 
+def _eval_val_set(experiment_path: str, config: TrainConfig) -> ShapeDataset:
+    """The validation shapes of an experiment: its persisted split
+    manifest when all its shapes exist, else the split re-derived from the
+    config."""
+    split_file = os.path.join(experiment_path, "split.json")
+    if os.path.exists(split_file):
+        with open(split_file) as f:
+            manifest = json.load(f)
+        val_paths = [p for p in manifest.get("val", []) if os.path.exists(p)]
+        if val_paths and len(val_paths) == len(manifest.get("val", [])):
+            return ShapeDataset(val_paths)
+    return _split(_dataset(config), config.batch_size)[1]
+
+
 def eval_main(argv=None) -> int:
     """Full inference evaluation: surface extraction and the metrics
     (occupancy IoU, the IoU sweep and its maximum, F-score and its
@@ -219,18 +233,7 @@ def eval_main(argv=None) -> int:
     engine = Engine(config, device=device, experiment=experiment)
     engine.restore(args.checkpoint)
 
-    # the persisted split manifest when all its shapes exist, else the
-    # split re-derived from the config
-    split_file = os.path.join(args.experiment_path, "split.json")
-    val_set = None
-    if os.path.exists(split_file):
-        with open(split_file) as f:
-            manifest = json.load(f)
-        val_paths = [p for p in manifest.get("val", []) if os.path.exists(p)]
-        if val_paths and len(val_paths) == len(manifest.get("val", [])):
-            val_set = ShapeDataset(val_paths)
-    if val_set is None:
-        _, val_set = _split(_dataset(config), config.batch_size)
+    val_set = _eval_val_set(args.experiment_path, config)
     means = engine.validate(batch_iterator(val_set, config.batch_size))
 
     infer = engine.inference_step()

@@ -3,8 +3,9 @@ counterpart of deftet_tpu/native).
 
 ``native/topology.cpp`` is compiled by ``g++`` at first use into
 ``build/native/`` (never at import).  Every builder has a numpy twin in
-``tetgrid.topology``, which the tests hold it to; ``build_grid_statics``
-takes the ``Topology`` of either (``topology=``).
+``tetgrid.topology``, which the tests hold it to.  As in the JAX package,
+``build_lattice_topology`` and ``build_grid_statics`` take the native
+builders wherever g++ is on the path, the numpy ones otherwise.
 """
 
 from .build import load_library, native_available

@@ -173,9 +173,12 @@ def sided_squared_distance(a_bxnx3, b_bxmx3, n_valid_b=None, n_valid_a=None):
     """Differentiable one-sided squared distance a -> b: the argmin runs
     without autograd, the distance is recomputed through the gather of
     the nearest point, so gradients reach both clouds.  The index is kept
-    for a rematerialized backward (``remat.saved``)."""
+    for a rematerialized backward (``remat.saved``).  The clouds may be
+    strided views (a prefix of stored samples): the kernel reads them
+    contiguous."""
     idx = saved("nn_argmin_idx", lambda: nearest_neighbor(
-        a_bxnx3, b_bxmx3, n_valid_b, n_queries=n_valid_a)[1])
+        a_bxnx3.contiguous(), b_bxmx3.contiguous(), n_valid_b,
+        n_queries=n_valid_a)[1])
     closest = torch.gather(
         b_bxmx3, 1, idx.long()[..., None].expand(-1, -1, 3)
     )

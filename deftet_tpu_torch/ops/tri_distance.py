@@ -182,7 +182,8 @@ def point_to_mesh_squared_distance(points_bxpx3, tri_bxfx3x3,
         face_mask_bxf = torch.ones(tri.shape[:2], dtype=torch.float32,
                                    device=tri.device)
     idx = saved("tri_argmin_idx", lambda: tri_argmin(
-        pts, tri.contiguous(), face_mask_bxf.float().contiguous()))
+        pts.contiguous(), tri.contiguous(),
+        face_mask_bxf.float().contiguous()))
     best = torch.gather(
         tri, 1, idx.long()[:, :, None, None].expand(-1, -1, 3, 3)
     )

@@ -308,14 +308,24 @@ def build_lattice_topology(grid, face_arrays: bool = True):
     on the padded face list, the edge incidence and face -> edge ids from
     the class tables; with ``face_arrays=False`` those fields are None (the
     lattice step reads them only for the uncompacted normal term).  Hull-
-    padded slots are left out of the tet neighbours."""
+    padded slots are left out of the tet neighbours.
+
+    As in the JAX package, the vertex adjacency and the edge-face pairs
+    come from the native builders wherever g++ is on the path (the pairs
+    then listed edge by edge), else from numpy.  Where g++ is present but
+    the library fails to build or load, this raises."""
     if face_lattice_info(grid) is None:
         return None
+    from ..native import build as native_build
+    from ..native import topology as native
+
+    use_native = native_build.native_available()
     r = grid.resolution
     n_point = grid.n_vertices
     tets = np.asarray(grid.tets, np.int32)
     face_v, face_tet, face_slot, valid, hull = build_lattice_faces(r)
-    vai, vam, deg = build_vertex_adjacency(tets, n_point)
+    vai, vam, deg = (native.build_vertex_adjacency_native if use_native
+                     else build_vertex_adjacency)(tets, n_point)
     nbr = build_tet_neighbors(face_tet[valid], face_slot[valid],
                               tets.shape[0])
     vti, vtm = build_vertex_tet_incidence(tets, n_point)
@@ -324,7 +334,8 @@ def build_lattice_topology(grid, face_arrays: bool = True):
         efi, efm, fei = build_lattice_edge_arrays(r)
         # flattening the incidence row-major is already edge-ascending
         flat_mask = efm.reshape(-1) > 0
-        pa, pb = build_edge_face_pairs(face_v, n_point)
+        pa, pb = (native.build_edge_face_pairs_native if use_native
+                  else build_edge_face_pairs)(face_v, n_point)
         vfi, vfm = build_vertex_face_incidence(face_v, n_point)
         face = dict(
             edge_face_idx=efi, edge_face_mask=efm, edge_pair_fa=pa,

@@ -400,13 +400,21 @@ class Engine:
         if self.idle:
             return history
         for _ in range(epochs):
+            # host seconds of each part (each ends reading its means back,
+            # so the device's work is inside it), logged as an "epoch" line
+            t0 = time.perf_counter()
             train_means = self.train_epoch(train_iter_fn())
+            seconds = {"train_s": time.perf_counter() - t0}
             record = {"epoch": self.epoch, "train": train_means}
             if self.epoch % self.config.val_every == 0:
+                t0 = time.perf_counter()
                 val_means = self.validate(val_iter_fn())
+                seconds["val_s"] = time.perf_counter() - t0
                 record["val"] = val_means
+                t0 = time.perf_counter()
                 inf_means = (self.validate_inference(val_iter_fn())
                              if self.config.val_inference else None)
+                seconds["val_inference_s"] = time.perf_counter() - t0
                 if inf_means is not None:
                     record["val_inference"] = inf_means
                     val_iou = inf_means["val_iou_max"]
@@ -415,6 +423,13 @@ class Engine:
                 is_best = val_iou > self.best_iou
                 if is_best:
                     self.best_iou = val_iou
+                t0 = time.perf_counter()
                 self.save(best=is_best)
+                seconds["save_s"] = time.perf_counter() - t0
+            if self.device.type == "cuda":
+                seconds["peak_bytes"] = torch.cuda.max_memory_allocated(
+                    self.device)
+            self._log({"kind": "epoch", "epoch": self.epoch,
+                       "step": self.global_step, **seconds})
             history.append(record)
         return history

@@ -1,6 +1,7 @@
 """Per-grid static tensors of the train step (torch port of
 deftet_tpu/train/statics.py): the regular lattice's class-major topology,
-or any tet grid's through the generic numpy builders."""
+or any tet grid's through the generic builders, native (g++) where a
+compiler is on the path and numpy otherwise, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -112,15 +113,23 @@ def build_grid_statics(resolution: int, grid: TetGrid | None = None,
                        face_arrays: bool = True) -> GridStatics:
     """Build (or adopt) a grid and its topology and lift them to
     ``device``: the class-major lattice topology for the regular Kuhn
-    grid, else ``build_topology``.  ``face_arrays=False`` skips the
-    lattice's face-derived gather tables (read only by the uncompacted
-    normal term)."""
+    grid, else ``build_topology``, as in the JAX package through the
+    native builders wherever g++ is on the path (``build_topology_native``;
+    its edge-face pairs listed edge by edge) and raising where g++ is
+    present but the library fails to build or load.  ``face_arrays=False``
+    skips the lattice's face-derived gather tables (read only by the
+    uncompacted normal term)."""
     if grid is None:
         grid = build_tet_grid(resolution)
     if topology is None:
         topology = build_lattice_topology(grid, face_arrays=face_arrays)
     if topology is None:
-        topology = build_topology(grid.tets, grid.n_vertices)
+        from ..native import build as native_build
+        from ..native import topology as native
+
+        topology = (native.build_topology_native
+                    if native_build.native_available()
+                    else build_topology)(grid.tets, grid.n_vertices)
     dev = torch.device(device)
 
     def lift(name, dtype=None):

@@ -324,3 +324,38 @@ def test_inference_step_matches_reference(small_model, pallas_nn):
     assert float(got["n_boundary"]) > 0
     for name in ("chamfer", "chamfer_l1", "hausdorff", "hausdorff_max"):
         assert float(got[name]) > 0, name
+
+
+@pytest.mark.parametrize("eval_points", [200, 300])
+def test_inference_step_hands_the_kernels_contiguous_points(eval_points,
+                                                            monkeypatch):
+    """The CUDA wrappers of K2 and K3 refuse strided tensors, so every call
+    of the inference step must hand them contiguous ones, also where the
+    GT points are a prefix of the 256 stored samples (200; 300 resamples
+    the mesh).  The CPU's plain versions would accept either: the
+    wrappers are wrapped here to check."""
+    from deftet_tpu_torch.ops import nearest, tri_distance
+
+    calls = []
+
+    def contiguous_only(fn, name):
+        def check(*args, **kwargs):
+            tensors = [a for a in (*args, *kwargs.values())
+                       if isinstance(a, torch.Tensor)]
+            assert all(t.is_contiguous() for t in tensors), name
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return check
+
+    monkeypatch.setattr(nearest, "nearest_neighbor", contiguous_only(
+        nearest.nearest_neighbor, "nearest_neighbor"))
+    monkeypatch.setattr(tri_distance, "tri_argmin", contiguous_only(
+        tri_distance.tri_argmin, "tri_argmin"))
+    _, cfg = tp.configs(eval_points=eval_points)
+    engine = Engine(cfg, device="cpu")
+    batch = engine._prep_batch(_eval_batch())
+    assert not batch["surface_points"][:, :200].is_contiguous()
+    out = engine.inference_step()(batch, engine.statics,
+                                  torch.Generator().manual_seed(0))
+    assert all(np.isfinite(float(v)) for v in out.values())
+    assert {"nearest_neighbor", "tri_argmin"} <= set(calls)

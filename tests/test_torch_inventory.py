@@ -85,6 +85,21 @@ NOT_PORTED = {
     ("render/optimize.py", "calibrate_eval_bin_cand"): _EVAL_BIN,
 }
 
+# a JAX script of scripts/ the port does not take -> reason; each is named
+# in ROADMAP.md's "Not to port" list.  Every other one is a campaign
+# driver, whose port is scripts/torch_<name>.
+SCRIPTS_NOT_PORTED = {
+    "tpu_smoke.py": "its port is chip_smoke.py",
+    "hlo_stats.py": "XLA graph sizes",
+    "preingest_r4.py": "TPU contention",
+    "roofline.py": "XLA cost analysis: the port has chip_profile.py and "
+                   "chip_smoke.py's bounds",
+    "step_breakdown.py": "XLA cost analysis: the port has chip_profile.py "
+                         "and chip_smoke.py's bounds",
+}
+JAX_SCRIPTS = sorted(p.name for p in (ROOT / "scripts").glob("*.py")
+                     if not p.name.startswith("torch_"))
+
 SCRIPTS = {"deftet-torch-train": "train_main", "deftet-torch-eval":
            "eval_main", "deftet-torch-render": "render_main",
            "deftet-torch-preprocess": "preprocess_main"}
@@ -223,3 +238,18 @@ def test_console_scripts_name_port_functions():
         assert fn in port_cli, fn
         assert scripts[script.replace("-torch", "")] == \
             f"deftet_tpu.cli:{fn}", script
+
+
+@pytest.mark.parametrize("script", JAX_SCRIPTS)
+def test_every_script_is_ported_or_named(script):
+    """Each campaign driver of scripts/ has its port beside it; each other
+    JAX script is in SCRIPTS_NOT_PORTED and ROADMAP.md's "Not to port"."""
+    ported = ROOT / "scripts" / f"torch_{script}"
+    if script.endswith("_campaign.py"):
+        assert ported.exists(), f"scripts/{script} has no port"
+        assert script not in SCRIPTS_NOT_PORTED, script
+    else:
+        assert script in SCRIPTS_NOT_PORTED, (
+            f"scripts/{script}: no port and no SCRIPTS_NOT_PORTED entry")
+        assert f"`scripts/{script}`" in roadmap_not_to_port(), script
+        assert not ported.exists(), f"{script} is ported now"

@@ -16,7 +16,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
+import torch_parity as tp
 from deftet_tpu.native import build as jax_build
 from deftet_tpu.native import topology as jax_native
 from deftet_tpu_torch.native import (
@@ -30,7 +32,7 @@ from deftet_tpu_torch.native import (
 )
 from deftet_tpu_torch.native import build as port_build
 from deftet_tpu_torch.native import topology as port_native
-from deftet_tpu_torch.tetgrid import build_tet_grid
+from deftet_tpu_torch.tetgrid import build_lattice_topology, build_tet_grid
 from deftet_tpu_torch.tetgrid.topology import (
     build_edge_face_pairs,
     build_faces,
@@ -38,6 +40,7 @@ from deftet_tpu_torch.tetgrid.topology import (
     build_topology,
     build_vertex_adjacency,
 )
+from deftet_tpu_torch.train import statics
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -208,9 +211,74 @@ def test_bad_indices_raise():
         collapse_vertices_native(np.zeros((4, 2)))
 
 
+@pytest.fixture(scope="module")
+def split(tmp_path_factory):
+    return tp.split_grid(tmp_path_factory.mktemp("grid") / "split.tet")[1]
+
+
+def _statics_grid(kind, split):
+    return build_tet_grid(3) if kind == "lattice" else split
+
+
+@pytest.mark.parametrize("kind", ["lattice", "split"])
+def test_statics_without_gxx_take_numpy(kind, split, monkeypatch):
+    """With ``native_available`` false, the lattice topology and a general
+    grid's statics come from the numpy builders (no native builder is
+    called) and equal what the native builders give: every field, the
+    edge-face pairs as a set (numpy lists them by incidence column)."""
+    grid = _statics_grid(kind, split)
+    native_topo = build_lattice_topology(grid)
+    native_statics = statics.build_grid_statics(4, grid=grid)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a native builder was called")
+
+    for name in ("build_vertex_adjacency_native",
+                 "build_edge_face_pairs_native", "build_topology_native"):
+        monkeypatch.setattr(port_native, name, refuse)
+    monkeypatch.setattr(port_build, "native_available", lambda: False)
+    numpy_statics = statics.build_grid_statics(4, grid=grid)
+    for name, a, b in zip(numpy_statics._fields, numpy_statics,
+                          native_statics):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    if kind == "lattice":
+        numpy_topo = build_lattice_topology(grid)
+        for f in dataclasses.fields(numpy_topo):
+            a, b = getattr(numpy_topo, f.name), getattr(native_topo, f.name)
+            if f.name in ("edge_pair_fa", "edge_pair_fb"):
+                continue
+            if isinstance(a, np.ndarray):
+                _equal([a], [b])
+            else:
+                assert a == b, f.name
+        assert _pairs(numpy_topo.edge_pair_fa, numpy_topo.edge_pair_fb) == \
+            _pairs(native_topo.edge_pair_fa, native_topo.edge_pair_fb)
+        _equal([numpy_topo.edge_pair_fa, numpy_topo.edge_pair_fb],
+               build_edge_face_pairs(numpy_topo.face_fx3, grid.n_vertices))
+
+
+@pytest.mark.parametrize("kind", ["lattice", "split"])
+def test_failed_build_raises(kind, split, monkeypatch, tmp_path):
+    """With g++ on the path but a library that does not build, the statics
+    raise: nothing gives way to numpy."""
+    monkeypatch.setattr(port_build, "_CACHE", {})
+    monkeypatch.setattr(port_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(port_build, "FLAGS",
+                        port_build.FLAGS + ["-fno-such-option"])
+    grid = _statics_grid(kind, split)
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        if kind == "lattice":
+            build_lattice_topology(grid)
+        else:
+            statics.build_grid_statics(4, grid=grid)
+    assert not list(tmp_path.iterdir())
+
+
 PROBE = r"""
 import json
+import deftet_tpu_torch
 import deftet_tpu_torch.native
+import deftet_tpu_torch.train
 from deftet_tpu_torch.native import build
 print(json.dumps({"loaded": sorted(build._CACHE), "built": build.build_log}))
 """

@@ -15,6 +15,10 @@ from deftet_tpu.tetgrid import build_tet_grid as jax_grid
 from deftet_tpu.tetgrid import lattice_faces as jax_lattice
 from deftet_tpu.tetgrid import topology as jax_topology
 from deftet_tpu.train import statics as jax_statics
+from deftet_tpu.native import build as jax_build
+from deftet_tpu.native import topology as jax_native
+from deftet_tpu_torch.native import native_available
+from deftet_tpu_torch.native import topology as port_native
 from deftet_tpu_torch.tetgrid import (
     Topology,
     build_lattice_edge_arrays,
@@ -44,6 +48,19 @@ def split(tmp_path_factory):
     return tp.split_grid(tmp_path_factory.mktemp("grid") / "split.tet")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_lib(tmp_path_factory):
+    """The JAX package's native library, loaded in this process from a
+    directory of this test's own before any reference call: its build
+    shares one temporary file name across processes, and a reference
+    whose build fails falls back to numpy (another pair order)."""
+    if native_available():
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("DEFTET_NATIVE_CACHE",
+                      str(tmp_path_factory.mktemp("jax_native")))
+            assert jax_build.load_library("topology") is not None
+
+
 @pytest.mark.parametrize("kind", ["kuhn3", "split2"])
 def test_build_topology_matches_reference(kind, split):
     if kind == "kuhn3":
@@ -61,9 +78,13 @@ def test_lattice_topology_matches_reference(res):
     grid = build_tet_grid(res)
     ref = jax_lattice.build_lattice_topology(jax_grid(res))
     got = build_lattice_topology(grid)
-    # the reference takes its native builders where they compile; they
-    # list each edge's face pairs in another order (tests/test_native.py)
-    assert_same_topology(got, ref, skip=("edge_pair_fa", "edge_pair_fb"))
+    if native_available():
+        # both packages take their native builders: every field in order
+        assert_same_topology(got, ref)
+    else:
+        # both take numpy, whose pairs the native builders list in another
+        # order: held as a set, as a machine without g++ can
+        assert_same_topology(got, ref, skip=("edge_pair_fa", "edge_pair_fb"))
     assert sorted(zip(got.edge_pair_fa, got.edge_pair_fb)) == sorted(
         zip(ref.edge_pair_fa, ref.edge_pair_fb))
     for got_a, ref_a in zip(build_lattice_edge_arrays(res),
@@ -112,3 +133,25 @@ def test_general_grid_statics_match_reference(split):
     bare = statics.build_grid_statics(3, face_arrays=False)
     assert bare.edge_face_idx is None and bare.vert_face_inc_idx is None
     assert bare.vert_adj_idx is not None and bare.vert_tet_inc_idx is not None
+
+
+def test_general_grid_statics_take_the_reference_topology(split,
+                                                          monkeypatch):
+    """On a non-lattice grid ``build_grid_statics`` takes
+    ``build_topology_native`` exactly where the reference does (g++ on
+    the path), and the topology it takes equals the reference's in
+    order, the edge-face pairs included."""
+    jgrid, grid = split
+    taken = []
+    native_builder = port_native.build_topology_native
+
+    def spy(tets, n):
+        taken.append(native_builder(tets, n))
+        return taken[-1]
+
+    monkeypatch.setattr(port_native, "build_topology_native", spy)
+    statics.build_grid_statics(4, grid=grid)
+    assert len(taken) == int(native_available())
+    if taken:
+        assert_same_topology(taken[0], jax_native.build_topology_native(
+            jgrid.tets, jgrid.n_vertices))
