@@ -115,8 +115,11 @@ def _trace(engine, batch, table: str, sync=None) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     averages = prof.key_averages()
+    # the port's spans show on the device timeline as user annotations:
+    # not device work
     events = [e for e in averages
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     by_name = sorted(((e.key, e.self_device_time_total / 1e3 / STEPS,
                        e.count // STEPS) for e in events),
                      key=lambda t: -t[1])

@@ -47,6 +47,7 @@ from ..losses.surface import (
 )
 from ..nn.gcn import LatticeAdjacency, VertexAdjacency
 from ..ops.point_tet import paste_occupancy, points_in_tets_soa
+from ..utils.timing import span
 if TYPE_CHECKING:  # train.step imports this module
     from ..train.statics import GridStatics
 from .metrics import (
@@ -241,85 +242,92 @@ def make_inference_step(model, config: TrainConfig, lattice_offsets=None,
     def infer(batch, statics: GridStatics,
               generator: torch.Generator | None = None,
               draws=None) -> Dict[str, torch.Tensor]:
-        draws = draws or {}
-        tet_pos, soa, logits = _predict(model, batch, statics, config,
-                                        lattice_offsets, tet_lattice,
-                                        noise=draws.get("noise"))
-        prob = torch.sigmoid(logits)
-        pred_occ = (prob > config.occ_threshold).float()
-        work_faces, work_mask, mask_b, budget = _surface(
-            pred_occ, statics, config, face_lattice)
-        bsz = tet_pos.shape[0]
-        bidx = torch.arange(bsz, device=tet_pos.device)[:, None, None]
-        face_pos = tet_pos.float()[bidx, work_faces]  # (B, K, 3, 3)
+        with span("eval.step", new_step=True):
+            return _infer(batch, statics, generator, draws or {})
+
+    def _infer(batch, statics, generator, draws):
+        with span("eval.forward"):
+            tet_pos, soa, logits = _predict(model, batch, statics, config,
+                                            lattice_offsets, tet_lattice,
+                                            noise=draws.get("noise"))
+        with span("eval.surface"):
+            prob = torch.sigmoid(logits)
+            pred_occ = (prob > config.occ_threshold).float()
+            work_faces, work_mask, mask_b, budget = _surface(
+                pred_occ, statics, config, face_lattice)
+            bsz = tet_pos.shape[0]
+            bidx = torch.arange(bsz, device=tet_pos.device)[:, None, None]
+            face_pos = tet_pos.float()[bidx, work_faces]  # (B, K, 3, 3)
 
         # occupancy IoU on the SDF sample points, each reading the
         # (first) tet that contains it; points outside the grid read 0
         gt_inside = (batch["sdf"] > 0).float()
-        cond = points_in_tets_soa(soa, batch["sdf_points"])
-        in_grid = (cond >= 0).float()
-        pred_inside = paste_occupancy(pred_occ, cond) * in_grid
-        occ_iou = torch.stack([iou(p, g, thresh=0.5)
-                               for p, g in zip(pred_inside, gt_inside)])
-        prob_at_pts = paste_occupancy(prob, cond) * in_grid
-        # each mean over the global batch (this batch in one process)
-        def mean(x):
-            return parallel.mean_over_shard(x.mean())
+        with span("eval.points_in_tets"):
+            cond = points_in_tets_soa(soa, batch["sdf_points"])
+        with span("eval.metrics"):
+            in_grid = (cond >= 0).float()
+            pred_inside = paste_occupancy(pred_occ, cond) * in_grid
+            occ_iou = torch.stack([iou(p, g, thresh=0.5)
+                                   for p, g in zip(pred_inside, gt_inside)])
+            prob_at_pts = paste_occupancy(prob, cond) * in_grid
+            # each mean over the global batch (this batch in one process)
+            def mean(x):
+                return parallel.mean_over_shard(x.mean())
 
-        sweep = {
-            f"val_iou_{t:.1f}": mean(torch.stack(
-                [iou(p, g, thresh=t) for p, g in zip(prob_at_pts, gt_inside)]
-            ))
-            for t in IOU_THRESHOLDS
-        }
-        val_iou_max = torch.stack(list(sweep.values())).max()
+            sweep = {
+                f"val_iou_{t:.1f}": mean(torch.stack(
+                    [iou(p, g, thresh=t)
+                     for p, g in zip(prob_at_pts, gt_inside)]))
+                for t in IOU_THRESHOLDS
+            }
+            val_iou_max = torch.stack(list(sweep.values())).max()
 
-        # surface metrics on n_res points a side
-        surface = batch["surface_points"]
-        n_res = config.eval_points or config.num_sample_points
-        gt_faces = batch["faces"].long()
-        gt_face_mask = (torch.arange(gt_faces.shape[1],
-                                     device=gt_faces.device)[None, :]
-                        < batch["n_faces"][:, None]).float()
-        pred_pts = sample_mesh_points(face_pos, work_mask, n_res, generator,
-                                      draws.get("pred"))
-        if n_res <= surface.shape[1]:
-            gt_pts = surface[:, :n_res]
-        else:
-            # more than the stored samples: resample the GT mesh
-            gt_tri = batch["verts"][bidx, gt_faces]
-            gt_pts = sample_mesh_points(gt_tri, gt_face_mask, n_res,
-                                        generator, draws.get("gt"))
-        fs = f_score(gt_pts, pred_pts, radius=0.01)
-        fs_ext = f_score(gt_pts, pred_pts, radius=0.01, extend=True)
-        ch = chamfer_distance(pred_pts, gt_pts)
-        ch_l1 = chamfer_distance_l1(pred_pts, gt_pts)
+            # surface metrics on n_res points a side
+            surface = batch["surface_points"]
+            n_res = config.eval_points or config.num_sample_points
+            gt_faces = batch["faces"].long()
+            gt_face_mask = (torch.arange(gt_faces.shape[1],
+                                         device=gt_faces.device)[None, :]
+                            < batch["n_faces"][:, None]).float()
+            pred_pts = sample_mesh_points(face_pos, work_mask, n_res,
+                                          generator, draws.get("pred"))
+            if n_res <= surface.shape[1]:
+                gt_pts = surface[:, :n_res]
+            else:
+                # more than the stored samples: resample the GT mesh
+                gt_tri = batch["verts"][bidx, gt_faces]
+                gt_pts = sample_mesh_points(gt_tri, gt_face_mask, n_res,
+                                            generator, draws.get("gt"))
+            fs = f_score(gt_pts, pred_pts, radius=0.01)
+            fs_ext = f_score(gt_pts, pred_pts, radius=0.01, extend=True)
+            ch = chamfer_distance(pred_pts, gt_pts)
+            ch_l1 = chamfer_distance_l1(pred_pts, gt_pts)
 
-        # the predicted surface as an indexed soup of its face corners
-        kf = face_pos.shape[1]
-        pred_verts = face_pos.reshape(bsz, kf * 3, 3)
-        pred_faces = torch.arange(kf * 3, device=face_pos.device).reshape(
-            1, kf, 3).expand(bsz, -1, -1)
-        haus_avg, haus_max = hausdorff_distance(
-            pred_verts, pred_faces, work_mask, batch["verts"], gt_faces,
-            gt_face_mask, pred_pts, gt_pts)
+            # the predicted surface as an indexed soup of its face corners
+            kf = face_pos.shape[1]
+            pred_verts = face_pos.reshape(bsz, kf * 3, 3)
+            pred_faces = torch.arange(kf * 3, device=face_pos.device).reshape(
+                1, kf, 3).expand(bsz, -1, -1)
+            haus_avg, haus_max = hausdorff_distance(
+                pred_verts, pred_faces, work_mask, batch["verts"], gt_faces,
+                gt_face_mask, pred_pts, gt_pts)
 
-        n_boundary = mask_b.sum(dim=1)
-        return {
-            "occ_iou": mean(occ_iou),
-            "val_iou_max": val_iou_max,
-            **sweep,
-            "f_score": mean(fs),
-            "f_score_extend": mean(fs_ext),
-            "chamfer": mean(ch),
-            "chamfer_l1": mean(ch_l1),
-            "hausdorff": mean(haus_avg),
-            "hausdorff_max": mean(haus_max),
-            "n_boundary": mean(n_boundary),
-            # > 0: the budget cut the predicted surface to its first-k
-            # (class-major) prefix
-            "boundary_overflow": mean(torch.clamp(n_boundary - budget,
-                                                  min=0.0)),
-        }
+            n_boundary = mask_b.sum(dim=1)
+            return {
+                "occ_iou": mean(occ_iou),
+                "val_iou_max": val_iou_max,
+                **sweep,
+                "f_score": mean(fs),
+                "f_score_extend": mean(fs_ext),
+                "chamfer": mean(ch),
+                "chamfer_l1": mean(ch_l1),
+                "hausdorff": mean(haus_avg),
+                "hausdorff_max": mean(haus_max),
+                "n_boundary": mean(n_boundary),
+                # > 0: the budget cut the predicted surface to its first-k
+                # (class-major) prefix
+                "boundary_overflow": mean(torch.clamp(n_boundary - budget,
+                                                      min=0.0)),
+            }
 
     return infer

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -44,7 +43,8 @@ from .. import parallel
 from ..config import Experiment, TrainConfig
 from ..nn import DeformableTetNetwork
 from ..tetgrid import build_tet_grid, face_lattice_info
-from ..utils.timing import TimingRegistry
+from ..utils import timing
+from ..utils.timing import span
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .statics import (
     GridStatics,
@@ -103,54 +103,61 @@ class Engine:
             torch.backends.cudnn.allow_tf32 = False
         self.config = config
         self._experiment = experiment
-        if statics is not None:
-            self.statics = statics_to(statics, self.device)
-            self.lattice_offsets = self.tet_lattice = None
-            self.face_lattice = None
-        else:
-            grid = build_tet_grid(config.res)
-            # the lattice's face-derived gather tables are read only by
-            # the uncompacted normal term
-            budget = config.resolved_max_boundary_faces()
-            self.statics = build_grid_statics(
-                config.res, grid=grid, device=self.device,
-                face_arrays=not 0 < budget < 12 * config.res**3)
-            self.lattice_offsets = lattice_offsets(grid)
-            self.tet_lattice = lattice_tet_offsets(grid)
-            self.face_lattice = face_lattice_info(grid)
-        init_gen = torch.Generator().manual_seed(config.seed)
-        self.model = DeformableTetNetwork(
-            blocks=config.parsed_blocks(),
-            use_two_encoder=config.use_two_encoder,
-            use_lap_layer=config.use_lap_layer,
-            scale_pos=config.scale_pos,
-            scale_pvcnn=config.scale_pvcnn,
-            train_def=config.train_def,
-            gcn_hidden=config.parsed_gcn_hidden(),
-            pos_mlp_hidden=config.parsed_pos_mlp_hidden(),
-            occ_mlp_hidden=config.parsed_occ_mlp_hidden(),
-            dtype=torch.bfloat16 if config.precision == "bf16" else None,
-            use_disn=config.use_disn,
-            disn_image_size=config.disn_image_size,
-            disn_local_feature_size=config.disn_local_feature_size,
-            disn_encoding_dim=config.disn_encoding_dim,
-            disn_width=config.disn_width,
-            generator=init_gen,
-        ).to(self.device)
-        if config.pretrain:
-            # warm start from another experiment's best checkpoint:
-            # parameters and BatchNorm statistics, a fresh optimizer
-            tree = restore_checkpoint(os.path.join(config.pretrain, "ckpt"),
-                                      "best", map_location="cpu")
-            self.model.load_state_dict(tree["model"])
-        if world is not None:
-            parallel.replicate(self.model)
-        self.optimizer = make_optimizer(config, list(self.model.parameters()))
+        with span("engine.init"):
+            with span("engine.statics"):
+                if statics is not None:
+                    self.statics = statics_to(statics, self.device)
+                    self.lattice_offsets = self.tet_lattice = None
+                    self.face_lattice = None
+                else:
+                    grid = build_tet_grid(config.res)
+                    # the lattice's face-derived gather tables are read
+                    # only by the uncompacted normal term
+                    budget = config.resolved_max_boundary_faces()
+                    self.statics = build_grid_statics(
+                        config.res, grid=grid, device=self.device,
+                        face_arrays=not 0 < budget < 12 * config.res**3)
+                    self.lattice_offsets = lattice_offsets(grid)
+                    self.tet_lattice = lattice_tet_offsets(grid)
+                    self.face_lattice = face_lattice_info(grid)
+            with span("engine.model"):
+                init_gen = torch.Generator().manual_seed(config.seed)
+                self.model = DeformableTetNetwork(
+                    blocks=config.parsed_blocks(),
+                    use_two_encoder=config.use_two_encoder,
+                    use_lap_layer=config.use_lap_layer,
+                    scale_pos=config.scale_pos,
+                    scale_pvcnn=config.scale_pvcnn,
+                    train_def=config.train_def,
+                    gcn_hidden=config.parsed_gcn_hidden(),
+                    pos_mlp_hidden=config.parsed_pos_mlp_hidden(),
+                    occ_mlp_hidden=config.parsed_occ_mlp_hidden(),
+                    dtype=(torch.bfloat16 if config.precision == "bf16"
+                           else None),
+                    use_disn=config.use_disn,
+                    disn_image_size=config.disn_image_size,
+                    disn_local_feature_size=config.disn_local_feature_size,
+                    disn_encoding_dim=config.disn_encoding_dim,
+                    disn_width=config.disn_width,
+                    generator=init_gen,
+                ).to(self.device)
+                if config.pretrain:
+                    # warm start from another experiment's best checkpoint:
+                    # parameters and BatchNorm statistics, a fresh optimizer
+                    tree = restore_checkpoint(
+                        os.path.join(config.pretrain, "ckpt"), "best",
+                        map_location="cpu")
+                    self.model.load_state_dict(tree["model"])
+                if world is not None:
+                    parallel.replicate(self.model)
+                self.optimizer = make_optimizer(
+                    config, list(self.model.parameters()))
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed + 1)
         self._infer_step = None  # built at the first inference validation
-        self.timing = TimingRegistry(enabled=config.timing,
-                                     device=self.device)
+        # config.timing: spans record CUDA events, and save() writes
+        # their summary (utils/timing.py)
+        timing.RECORDER.device_events = bool(config.timing)
         self.global_step = 0
         self.best_iou = 0.0
         self.epoch = 0
@@ -177,7 +184,8 @@ class Engine:
     def _log(self, record: Dict) -> None:
         if not self.is_main:
             return
-        with open(self.experiment.file_path("metrics.jsonl"), "a") as f:
+        with span("engine.log"), open(
+                self.experiment.file_path("metrics.jsonl"), "a") as f:
             f.write(json.dumps(record) + "\n")
 
     def _prep_batch(self, batch: Dict[str, np.ndarray],
@@ -186,19 +194,22 @@ class Engine:
         a world, this rank's rows of the global batch, laid out for
         ``microbatches`` (default ``grad_accum``: the train step's; the
         validations pass 1)."""
-        out = {}
-        for k, v in batch.items():
-            if isinstance(v, torch.Tensor):
-                out[k] = v
-            elif isinstance(v, np.ndarray) and (
-                    np.issubdtype(v.dtype, np.number)
-                    or np.issubdtype(v.dtype, np.bool_)):
-                out[k] = v
-        if self.shard is not None:
-            accum = max(int(self.config.grad_accum), 1)
-            out = parallel.shard_rows(out, self.shard.index, self.shard.size,
-                                      microbatches or accum)
-        return {k: torch.as_tensor(v).to(self.device) for k, v in out.items()}
+        with span("engine.prep_batch"):
+            out = {}
+            for k, v in batch.items():
+                if isinstance(v, torch.Tensor):
+                    out[k] = v
+                elif isinstance(v, np.ndarray) and (
+                        np.issubdtype(v.dtype, np.number)
+                        or np.issubdtype(v.dtype, np.bool_)):
+                    out[k] = v
+            if self.shard is not None:
+                accum = max(int(self.config.grad_accum), 1)
+                out = parallel.shard_rows(out, self.shard.index,
+                                          self.shard.size,
+                                          microbatches or accum)
+            return {k: torch.as_tensor(v).to(self.device)
+                    for k, v in out.items()}
 
     def _sharded(self):
         """The context of one step: this rank's shard of the global batch
@@ -243,38 +254,47 @@ class Engine:
     def train_epoch(self, batches: Iterator[Dict[str, np.ndarray]]) -> Dict:
         """One epoch over numpy batches; returns the mean terms.  The sums
         stay on the device: the host reads them only where it logs."""
-        dev_sums = None
-        n = 0
-        t0 = time.perf_counter()
-        for batch in batches:
-            prepped = self._prep_batch(batch)
-            with self.timing.region("train_step"):
+        with span("engine.train_epoch"):
+            dev_sums = None
+            n = 0
+            batches = iter(batches)
+            while True:
+                with span("engine.next_batch"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                prepped = self._prep_batch(batch)
                 terms = self.train_step(prepped)
-            n += 1
-            want_log = self.global_step % 10 == 0 or n == 1
-            want_print = (self.config.print_every
-                          and self.global_step % self.config.print_every == 0)
-            if want_log or want_print:
-                host = {k: float(v) for k, v in terms.items()}
-                if want_log:
-                    self._log({"kind": "train", "step": self.global_step,
-                               **host})
-                if want_print and self.is_main:
-                    print(f"step {self.global_step} "
-                          f"total={host.get('total', 0.0):.4f} "
-                          f"occ={host.get('occ', 0.0):.4f} "
-                          f"occ_iou={host.get('occ_iou', 0.0):.4f}",
-                          flush=True)
-            if (self.config.save_vis and self.config.save_vis_every
-                    and self.is_main
-                    and self.global_step % self.config.save_vis_every == 0):
-                self._save_vis(prepped, f"vis_{self.global_step}")
-            dev_sums = (dict(terms) if dev_sums is None
-                        else {k: dev_sums[k] + v for k, v in terms.items()})
-        self.epoch += 1
-        means = {k: float(v) / max(n, 1) for k, v in (dev_sums or {}).items()}
-        means["steps_per_sec"] = n / max(time.perf_counter() - t0, 1e-9)
-        return means
+                n += 1
+                self._report(terms, n)
+                if (self.config.save_vis and self.config.save_vis_every
+                        and self.is_main and self.global_step
+                        % self.config.save_vis_every == 0):
+                    self._save_vis(prepped, f"vis_{self.global_step}")
+                dev_sums = (dict(terms) if dev_sums is None else
+                            {k: dev_sums[k] + v for k, v in terms.items()})
+            self.epoch += 1
+            with span("engine.read"):
+                return {k: float(v) / max(n, 1)
+                        for k, v in (dev_sums or {}).items()}
+
+    def _report(self, terms, n: int) -> None:
+        """Log the ``n``-th update of the epoch's terms (its first and
+        every tenth global step) and print them every ``print_every``."""
+        want_log = self.global_step % 10 == 0 or n == 1
+        want_print = (self.config.print_every
+                      and self.global_step % self.config.print_every == 0)
+        if not (want_log or want_print):
+            return
+        with span("engine.read"):
+            host = {k: float(v) for k, v in terms.items()}
+        if want_log:
+            self._log({"kind": "train", "step": self.global_step, **host})
+        if want_print and self.is_main:
+            print(f"step {self.global_step} "
+                  f"total={host.get('total', 0.0):.4f} "
+                  f"occ={host.get('occ', 0.0):.4f} "
+                  f"occ_iou={host.get('occ_iou', 0.0):.4f}", flush=True)
 
     # ------------------------------------------------------------------ eval
     def validate(self, batches: Iterator[Dict[str, np.ndarray]]) -> Dict:
@@ -297,7 +317,8 @@ class Engine:
             raise ValueError(
                 "validate() received no batches — check that the validation "
                 "split has at least batch_size examples")
-        means = {k: float(v) / n for k, v in sums.items()}
+        with span("engine.read"):
+            means = {k: float(v) / n for k, v in sums.items()}
         self._log({"kind": "val", "step": self.global_step, **means})
         return means
 
@@ -328,7 +349,8 @@ class Engine:
             n += 1
         if n == 0:
             return None
-        means = {k: float(v) / n for k, v in sums.items()}
+        with span("engine.read"):
+            means = {k: float(v) / n for k, v in sums.items()}
         self._log({"kind": "val_inference", "step": self.global_step,
                    **means})
         return means
@@ -352,8 +374,8 @@ class Engine:
         self.experiment.write_state({"epoch": self.epoch,
                                      "best_iou": self.best_iou,
                                      "global_step": self.global_step})
-        if self.timing.enabled:
-            self.timing.save(self.experiment.file_path("timing.json"))
+        if self.config.timing:
+            timing.RECORDER.save(self.experiment.file_path("timing.json"))
 
     def restore(self, name: str = "last") -> None:
         """Load checkpoint ``name``; under a world, rank 0 loads and
@@ -400,21 +422,21 @@ class Engine:
         if self.idle:
             return history
         for _ in range(epochs):
-            # host seconds of each part (each ends reading its means back,
-            # so the device's work is inside it), logged as an "epoch" line
-            t0 = time.perf_counter()
+            # host seconds of each part's span (each ends reading its
+            # means back, so the device's work is inside it), logged as an
+            # "epoch" line
             train_means = self.train_epoch(train_iter_fn())
-            seconds = {"train_s": time.perf_counter() - t0}
+            seconds = {"train_s": timing.RECORDER.last("engine.train_epoch")}
             record = {"epoch": self.epoch, "train": train_means}
             if self.epoch % self.config.val_every == 0:
-                t0 = time.perf_counter()
-                val_means = self.validate(val_iter_fn())
-                seconds["val_s"] = time.perf_counter() - t0
+                with span("engine.validate") as t:
+                    val_means = self.validate(val_iter_fn())
+                seconds["val_s"] = t.seconds
                 record["val"] = val_means
-                t0 = time.perf_counter()
-                inf_means = (self.validate_inference(val_iter_fn())
-                             if self.config.val_inference else None)
-                seconds["val_inference_s"] = time.perf_counter() - t0
+                with span("engine.validate_inference") as t:
+                    inf_means = (self.validate_inference(val_iter_fn())
+                                 if self.config.val_inference else None)
+                seconds["val_inference_s"] = t.seconds
                 if inf_means is not None:
                     record["val_inference"] = inf_means
                     val_iou = inf_means["val_iou_max"]
@@ -423,9 +445,9 @@ class Engine:
                 is_best = val_iou > self.best_iou
                 if is_best:
                     self.best_iou = val_iou
-                t0 = time.perf_counter()
-                self.save(best=is_best)
-                seconds["save_s"] = time.perf_counter() - t0
+                with span("engine.save") as t:
+                    self.save(best=is_best)
+                seconds["save_s"] = t.seconds
             if self.device.type == "cuda":
                 seconds["peak_bytes"] = torch.cuda.max_memory_allocated(
                     self.device)

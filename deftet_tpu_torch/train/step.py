@@ -32,9 +32,9 @@ loss = lambda_occ * occ + lambda_def * (area * volume + edge * edge +
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
-
+import contextlib
 import math
+from typing import Dict, Sequence
 
 import torch
 
@@ -58,6 +58,7 @@ from ..losses.surface import (
 from ..ops.check_sign import check_sign
 from ..ops.lattice import lattice_boundary_info
 from ..ops.voxelize import occupancy_from_grid_soa
+from ..utils.timing import span
 from .statics import GridStatics
 
 
@@ -338,8 +339,9 @@ def _global_terms(terms):
     if parallel.active() is None:
         return terms
     keys = [k for k in terms if k not in _GLOBAL_TERMS]
-    means = parallel.mean_over_shard(torch.stack([terms[k].float()
-                                                  for k in keys]))
+    with span("step.allreduce"):
+        means = parallel.mean_over_shard(torch.stack([terms[k].float()
+                                                      for k in keys]))
     out = dict(terms)
     for i, k in enumerate(keys):
         out[k] = means[i].to(terms[k].dtype)
@@ -352,8 +354,9 @@ def _global_grads(grads):
     process."""
     if parallel.active() is None:
         return grads
-    flat = parallel.mean_over_shard(torch.cat([g.reshape(-1)
-                                               for g in grads]))
+    with span("step.allreduce"):
+        flat = parallel.mean_over_shard(torch.cat([g.reshape(-1)
+                                                   for g in grads]))
     return [part.view_as(g) for part, g in
             zip(flat.split([g.numel() for g in grads]), grads)]
 
@@ -383,39 +386,41 @@ def train_step(model, optimizer: ClippedAdam, batch, statics: GridStatics,
     microbatches) and the gradients and terms are reduced over the group
     before the update (see the module doc)."""
     accum = max(int(config.grad_accum), 1)
-    micro = _microbatches(batch, accum) if accum > 1 else [batch]
     if draws is None or isinstance(draws, dict):
         draws = [draws] * accum
     if len(draws) != accum:
         raise ValueError(f"{len(draws)} draws for {accum} microbatches")
-    g_sum, t_sum = None, None
-    for mb, mb_draws in zip(micro, draws):
-        def loss(mb=mb, mb_draws=mb_draws):
-            return forward_losses(
-                model, mb, statics, config, generator, train=True,
-                lattice_offsets=lattice_offsets, tet_lattice=tet_lattice,
-                face_lattice=face_lattice, draws=mb_draws)
-
-        if config.remat:
-            with remat.segmented(generator):
-                total, terms = loss()
-        else:
-            total, terms = loss()
-        grads = torch.autograd.grad(total, optimizer.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(optimizer.params, grads)]
-        terms = {k: v.detach() for k, v in terms.items()}
-        terms["total"] = total.detach()
-        if g_sum is None:
-            g_sum, t_sum = grads, terms
-        else:
-            g_sum = [a + g for a, g in zip(g_sum, grads)]
-            t_sum = {k: t_sum[k] + v for k, v in terms.items()}
-    if accum > 1:
-        g_sum = [g / accum for g in g_sum]
-        t_sum = {k: v / accum for k, v in t_sum.items()}
-    optimizer.step(_global_grads(g_sum))
-    return _global_terms(t_sum)
+    with span("step.update", new_step=True):
+        micro = _microbatches(batch, accum) if accum > 1 else [batch]
+        g_sum, t_sum = None, None
+        for mb, mb_draws in zip(micro, draws):
+            with span("step.forward"):
+                with (remat.segmented(generator) if config.remat
+                      else contextlib.nullcontext()):
+                    total, terms = forward_losses(
+                        model, mb, statics, config, generator, train=True,
+                        lattice_offsets=lattice_offsets,
+                        tet_lattice=tet_lattice, face_lattice=face_lattice,
+                        draws=mb_draws)
+            with span("step.backward"):
+                grads = torch.autograd.grad(total, optimizer.params,
+                                            allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(optimizer.params, grads)]
+            terms = {k: v.detach() for k, v in terms.items()}
+            terms["total"] = total.detach()
+            if g_sum is None:
+                g_sum, t_sum = grads, terms
+            else:
+                g_sum = [a + g for a, g in zip(g_sum, grads)]
+                t_sum = {k: t_sum[k] + v for k, v in terms.items()}
+        if accum > 1:
+            g_sum = [g / accum for g in g_sum]
+            t_sum = {k: v / accum for k, v in t_sum.items()}
+        g_sum = _global_grads(g_sum)
+        with span("step.optimizer"):
+            optimizer.step(g_sum)
+        return _global_terms(t_sum)
 
 
 @torch.no_grad()

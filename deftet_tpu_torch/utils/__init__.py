@@ -1,4 +1,4 @@
-"""Host utilities: OBJ IO and named timers."""
+"""Host utilities: OBJ IO and the span recorder."""
 
 from .objio import load_obj, save_obj
 from .timing import Timer, TimingRegistry

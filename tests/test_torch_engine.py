@@ -19,6 +19,7 @@ from deftet_tpu.data import shapes as jax_shapes
 from deftet_tpu_torch import cli
 from deftet_tpu_torch.data import pipeline, shapes
 from deftet_tpu_torch.train import Engine
+from deftet_tpu_torch.utils import timing
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -75,7 +76,8 @@ def test_dataset_batches_and_split_match_reference(tmp_path):
 
 @pytest.fixture(scope="module")
 def fitted(tmp_path_factory):
-    """A tiny engine after two epochs of Engine.fit on the CPU."""
+    """A tiny engine after two epochs of Engine.fit on the CPU, and the
+    spans the fit recorded."""
     root = tmp_path_factory.mktemp("engine")
     _, cfg = tp.configs(**TINY, logdir=str(root / "exp"), timing=True)
     paths = pipeline.build_dataset(str(root / "data"), n_shapes=6,
@@ -83,17 +85,18 @@ def fitted(tmp_path_factory):
                                    num_workers=1, occ_grid_res=16)
     train_set, val_set = cli._split(pipeline.ShapeDataset(paths),
                                     cfg.batch_size)
+    timing.RECORDER.reset()
     engine = Engine(cfg, device="cpu")
     history = engine.fit(
         lambda: pipeline.batch_iterator(train_set, cfg.batch_size,
                                         rng=np.random.default_rng(
                                             cfg.seed + engine.epoch)),
         lambda: pipeline.batch_iterator(val_set, cfg.batch_size))
-    return cfg, engine, history, train_set
+    return cfg, engine, history, train_set, timing.RECORDER.export()
 
 
 def test_fit_validates_selects_and_logs(fitted):
-    _, engine, history, _ = fitted
+    _, engine, history, _, _ = fitted
     assert [h["epoch"] for h in history] == [1, 2]
     for h in history:
         assert h["val"] and h["val_inference"]
@@ -107,13 +110,48 @@ def test_fit_validates_selects_and_logs(fitted):
     state = engine.experiment.read_state()
     assert state["epoch"] == 2 and state["best_iou"] == engine.best_iou
     assert os.path.exists(engine.experiment.file_path("ckpt/best.pt"))
-    timing = json.loads(Path(engine.experiment.file_path("timing.json"))
-                        .read_text())
-    assert timing["train_step"]["count"] == engine.global_step
+    saved = json.loads(Path(engine.experiment.file_path("timing.json"))
+                       .read_text())
+    assert saved["step.update"]["count"] == engine.global_step
+
+
+def test_fit_epoch_seconds_are_its_spans(fitted):
+    """Each "epoch" line's seconds are the host seconds of that epoch's
+    spans, and the spans nest as the engine runs them."""
+    _, engine, _, _, recorded = fitted
+    spans = recorded["spans"]
+    by_id = {s["id"]: s for s in spans}
+    lines = Path(engine.experiment.file_path("metrics.jsonl")).read_text()
+    epochs = [r for r in map(json.loads, lines.splitlines())
+              if r["kind"] == "epoch"]
+    keys = {"train_s": "engine.train_epoch", "val_s": "engine.validate",
+            "val_inference_s": "engine.validate_inference",
+            "save_s": "engine.save"}
+    for key, name in keys.items():
+        got = [(s["end_ns"] - s["start_ns"]) * 1e-9 for s in spans
+               if s["name"] == name]
+        assert got == [r[key] for r in epochs], key
+    updates = [s for s in spans if s["name"] == "step.update"]
+    assert len(updates) == engine.global_step
+    # updates and inference steps each open the next step id
+    steps = [s["step"] for s in spans
+             if s["name"] in ("step.update", "eval.step")]
+    assert steps == list(range(1, len(steps) + 1))
+    for s in spans:
+        if s["name"] in ("step.forward", "step.backward", "step.optimizer"):
+            assert by_id[s["parent"]]["name"] == "step.update"
+        if s["name"] in ("step.update", "engine.next_batch"):
+            assert by_id[s["parent"]]["name"] == "engine.train_epoch"
+        if s["name"] == "eval.points_in_tets":
+            assert by_id[s["parent"]]["name"] == "eval.step"
+    names = {s["name"] for s in spans}
+    assert {"engine.init", "engine.statics", "engine.model",
+            "engine.prep_batch", "engine.read", "engine.log",
+            "eval.forward", "eval.surface", "eval.metrics"} <= names
 
 
 def test_restore_continues_bit_identically(fitted):
-    cfg, engine, _, train_set = fitted
+    cfg, engine, _, train_set, _ = fitted
     batch = next(pipeline.batch_iterator(train_set, cfg.batch_size))
     engine.save()
     terms = engine.train_step(engine._prep_batch(batch))
@@ -136,7 +174,7 @@ def test_restore_continues_bit_identically(fitted):
 
 
 def test_pretrain_warm_start(fitted):
-    cfg, engine, _, _ = fitted
+    cfg, engine, _, _, _ = fitted
     best = torch.load(engine.experiment.file_path("ckpt/best.pt"),
                       weights_only=True)
     _, cfg2 = tp.configs(**TINY, pretrain=engine.experiment.path,
