@@ -5,7 +5,7 @@
 Phases, each reporting on lines of its own:
 
 1. header  — torch / CUDA versions and the card's name and power limit;
-2. build   — the four CUDA kernels (csrc/*.cu), compiled anew, in parallel;
+2. build   — the five CUDA kernels (csrc/*.cu), compiled anew, in parallel;
 3. parity  — the small configuration in float32: one forward + backward on
    the CPU (plain PyTorch versions of the kernels) and one on the card
    (the kernels), from the same parameters and injected draws;
@@ -32,7 +32,10 @@ Phases, each reporting on lines of its own:
    configuration, bf16) through ``Engine``: one warm-up step and five
    timed steps, launch counts per kernel read around them;
    eval — that engine's full-inference evaluation at 100,000 points a
-   side (validate, validate_inference, timed inference steps);
+   side (validate, validate_inference, timed inference steps), then the
+   point-in-tet kernel at its inputs (4 x 20,000 SDF points against
+   750,000 deformed tets) against the plain scan index for index: ms,
+   bound, the plain scan's ms, the kernel's stats record;
    uncompacted_step — the main path's configuration at
    max_boundary_faces=0 (the surface terms over every face: K2 over 1.5M
    samples, K3 against every face under the boundary mask), the statics'
@@ -41,7 +44,8 @@ Phases, each reporting on lines of its own:
    grid split 1->8 (750,000 tets, written and read as a .tet file)
    through Engine(config, statics=...): the gather paths, no K1 launch;
    gather_eval — one inference step on that grid at 100,000 points a
-   side; native_topology — the native (g++) topology builders on that
+   side, and the point-in-tet kernel checked at its inputs as in eval;
+   native_topology — the native (g++) topology builders on that
    grid: build and host seconds beside numpy's, every array held equal,
    and one step on statics from each topology (K2 and K3 once, no K1);
    lattice_statics — the res-50 lattice topology through the native and
@@ -53,7 +57,8 @@ Phases, each reporting on lines of its own:
    the nearest single PyTorch call (every K1 variant of the step, with
    their launch-weighted total per step), K2 also at the eval metrics'
    shape (100,000 against 100,000 points), then K1-K3 at the inference
-   step's inputs;
+   step's inputs; point_tet_edge_cases — the point-in-tet kernel against
+   the plain scan on adversarial grids and queries (point_tet_cases);
    ddp_parity — two ranks sharing the card (gloo over CUDA tensors) take
    one res-4 f32 step with dropout, and one with grad_accum=2 and remat,
    held to the one-process step on the card (terms rtol 2e-4, gradients
@@ -117,7 +122,7 @@ PEAK_F32 = 67e12
 # runs 4x in the GCN (C = 256) and once for the Laplacian term (C = 3),
 # each with its backward; chamfer and the analytic term launch once each.
 LAUNCHES_PER_STEP = {"stencil": 10, "nearest": 1, "tri_argmin": 1,
-                     "raster_hit": 0}
+                     "raster_hit": 0, "point_tet": 0}
 TIMED_STEPS = 5
 
 KERNEL_INFO = {
@@ -131,6 +136,9 @@ KERNEL_INFO = {
     # rasterizer (a scan merging a (pixels, k + chunk) top-k per chunk)
     "raster_hit": ("deftet_tpu_torch/csrc/raster_hit.cu",
                    "deftet_tpu/render/raster.py:89"),
+    # replaces XLA code: the JAX package's scan of every (point, tet) pair
+    "point_tet": ("deftet_tpu_torch/csrc/point_tet.cu",
+                  "deftet_tpu/ops/point_tet.py:28"),
 }
 
 
@@ -1221,9 +1229,9 @@ DISN_TINY = dict(use_disn=True, disn_width=0.05, disn_encoding_dim=64,
 # launches per full-width step: both GCN heads (4 + 4 forward, 4 + 4
 # backward) and the Laplacian's forward and backward; DISN runs no GCN
 LAP_LAUNCHES = {"stencil": 18, "nearest": 1, "tri_argmin": 1,
-                "raster_hit": 0}
+                "raster_hit": 0, "point_tet": 0}
 DISN_LAUNCHES = {"stencil": 2, "nearest": 1, "tri_argmin": 1,
-                 "raster_hit": 0}
+                 "raster_hit": 0, "point_tet": 0}
 
 
 def leaf_ratio(got, ref, rtol, atol) -> float:
@@ -1454,7 +1462,7 @@ def check_disn_kernels(inputs, per_variant):
 # launches per full-width step on a general grid: no stencil (the GCN and
 # the Laplacian take the padded gather), chamfer and the analytic term once
 GATHER_LAUNCHES = {"stencil": 0, "nearest": 1, "tri_argmin": 1,
-                   "raster_hit": 0}
+                   "raster_hit": 0, "point_tet": 0}
 GATHER_DIR = ROOT / "build" / "smoke_gather"
 
 
@@ -1642,8 +1650,12 @@ def gather_eval(engine, data):
     if bad or out["n_boundary"] <= 0:
         raise AssertionError(f"gather_eval: non-finite {bad} or no surface")
     if launches["stencil"] or not (launches["nearest"]
-                                   and launches["tri_argmin"]):
+                                   and launches["tri_argmin"]
+                                   and launches["point_tet"]):
         raise AssertionError(f"gather_eval launched {launches}")
+    return check_point_tet(soa, prepped["sdf_points"],
+                           "kernel_point_tet_gather",
+                           launches["point_tet"])
 
 
 def check_uncompacted_kernels(inputs):
@@ -2233,7 +2245,7 @@ def eval_phase(engine, data):
     bad = [n for n, v in out.items() if not np.isfinite(v)]
     if bad or out["n_boundary"] <= 0:
         raise AssertionError(f"eval: non-finite {bad} or no surface {out}")
-    idle = [n for n in ("stencil", "nearest", "tri_argmin")
+    idle = [n for n in ("stencil", "nearest", "tri_argmin", "point_tet")
             if launches[n] == 0]
     if idle:
         raise AssertionError(f"eval path never launched {idle}")
@@ -2247,6 +2259,9 @@ def eval_phase(engine, data):
             engine.lattice_offsets, engine.tet_lattice), 3)
         pit_ms = host_ms(lambda: point_tet.points_in_tets_soa(
             soa, prepped["sdf_points"]), 3)
+        pit = check_point_tet(soa, prepped["sdf_points"],
+                              "kernel_point_tet_eval",
+                              launches["point_tet"] / (1 + EVAL_RUNS))
     runs = 1 + EVAL_RUNS
     say("eval", config=f"res={cfg.res} batch={cfg.batch_size} "
         f"{cfg.precision} eval_points={EVAL_POINTS} n_sdf={EVAL_SDF}",
@@ -2261,7 +2276,7 @@ def eval_phase(engine, data):
                 budget=cfg.resolved_max_boundary_faces(),
                 per_run={k: c / runs for k, c in rec.counts.items()},
                 median_infer_s=statistics.median(times), predict_ms=predict_ms,
-                points_in_tets_ms=pit_ms)
+                points_in_tets_ms=pit_ms, point_tet=pit)
 
 
 def check_eval_kernels(ev):
@@ -2295,6 +2310,148 @@ def check_eval_kernels(ev):
                                     if n != "step_ms")
     say("eval_split", **split)
     return {"stencil": k1, "nearest": k2, "tri_argmin": k3}
+
+
+def point_tet_bound(soa, q):
+    """(ms, by) of one point-in-tet call at the card's peak: the corners
+    read once (12 floats a tet), the queries read and the answers
+    written once; no operation count (the tests a query needs depend on
+    the bins)."""
+    b, t = soa[0][0].shape
+    return bound_ms(48 * b * t + 12 * q.shape[0] * q.shape[1]
+                    + 4 * q.shape[0] * q.shape[1], 0.0)
+
+
+def check_point_tet(soa, q, label, launches, reps=20):
+    """The point-in-tet kernel at a path's inputs against the plain scan
+    on the card, index for index: its ms (CUDA events over ``reps`` calls,
+    each call's host read of the entry count included), its bound, the
+    plain scan's ms (host clock, one call) and the kernel's stats
+    record."""
+    from deftet_tpu_torch.ops import point_tet
+
+    got = point_tet.points_in_tets_soa(soa, q)
+    torch.cuda.synchronize()
+    stats = point_tet.kernel_stats()
+    t = time.perf_counter()
+    ref = point_tet.points_in_tets_plain(soa, q)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    wrong = int((got != ref).sum())
+    ms = cuda_ms(lambda: point_tet.points_in_tets_soa(soa, q), reps)
+    bound, by = point_tet_bound(soa, q)
+    res = {"shape": f"{tuple(q.shape)} queries against "
+                    f"{tuple(soa[0][0].shape)} tets",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by, "library_ms": None, "max_abs_err": wrong,
+           "launches_per_run": launches, "stats": stats,
+           "found": int((ref >= 0).sum())}
+    say(label, **res)
+    if wrong:
+        raise AssertionError(f"{label}: {wrong} indices differ from the "
+                             "plain scan")
+    return res
+
+
+def point_tet_cases(seed=7):
+    """The point-in-tet kernel's adversarial cases: (name, corners (B, T,
+    4, 3), queries (B, P, 3)), numpy float32, on res-4 and res-8 Kuhn
+    grids in [-0.5, 0.5]^3 (spacing 0.25 and 0.125)."""
+    from deftet_tpu_torch.tetgrid import build_tet_grid
+
+    rng = np.random.default_rng(seed)
+    g4, g8 = build_tet_grid(4), build_tet_grid(8)
+    v4 = g4.centered_vertices().astype(np.float32)
+    # lattice vertices, edge midpoints, face and cell centres: each shared
+    # by two or more tets, so the lowest index has to win
+    axis = np.arange(-0.5, 0.5001, 0.125, dtype=np.float32)
+    lattice = np.stack(np.meshgrid(axis, axis, axis, indexing="ij"),
+                       -1).reshape(-1, 3)
+    cases = [("lattice_points", v4[g4.tets][None], lattice[None])]
+
+    # on the boundary, just outside it, far outside, NaN and infinities
+    face = rng.uniform(-0.5, 0.5, (600, 3)).astype(np.float32)
+    face[np.arange(600), rng.integers(0, 3, 600)] = rng.choice(
+        np.float32([-0.5, 0.5]), 600)
+    out = np.nextafter(face, np.sign(face) * np.float32(np.inf))
+    special = np.float32([[np.nan, 0, 0], [0, np.inf, 0], [-np.inf, 0, 0.1],
+                          [2, 0, 0], [0, -1e6, 0], [0, 0, 1e30],
+                          [3e24, 0, 0]])  # four scan every tet
+    q = np.concatenate([face, out, special])[None]
+    cases.append(("boundary_and_outside", v4[g4.tets][None], q))
+
+    # per batch element another deformation; element 0 holds flat tets
+    # (coplanar corners, one point, four on a line, flat up to 1e-7) at
+    # indices 200-203, which contain every query; element 1 one tet
+    # across the whole domain at index 150 (this grid has a few cells, so
+    # it is binned into all of them)
+    pos = v4[None] + rng.uniform(-0.06, 0.06, (2,) + v4.shape).astype(
+        np.float32)
+    corners = pos[:, g4.tets].copy()
+    c = corners[0]
+    c[200, :, 2] = c[200, 0, 2]
+    c[201] = c[201, 0]
+    c[202] = c[202, 0] + np.float32([0.1, 0.2, 0.3]) * np.float32(
+        [0, 1, 2, 3])[:, None]
+    c[203, :, 2] = c[203, 0, 2]
+    c[203, 3, 2] += np.float32(1e-7)
+    corners[1, 150] = np.float32([[-0.7, -0.7, -0.7], [0.7, -0.7, -0.7],
+                                  [-0.7, 0.7, -0.7], [0, 0, 0.7]])
+    q = rng.uniform(-0.6, 0.6, (2, 3000, 3)).astype(np.float32)
+    cases.append(("degenerate_and_across", corners, q))
+
+    # nothing inside: every answer -1
+    q = rng.uniform(1.0, 5.0, (1, 500, 3)).astype(np.float32) * \
+        rng.choice(np.float32([-1, 1]), (1, 500, 3))
+    cases.append(("empty", v4[g4.tets][None], q))
+
+    # a res-8 grid deformed by up to 0.4 of a spacing, three elements;
+    # in element 1 tet 1500 spans the domain, more cells than a binned tet
+    # may cover, so it goes to the overflow list
+    v8 = g8.centered_vertices().astype(np.float32)
+    pos = v8[None] + rng.uniform(-0.05, 0.05, (3,) + v8.shape).astype(
+        np.float32)
+    corners = pos[:, g8.tets].copy()
+    corners[1, 1500] = np.float32([[-0.6, -0.6, -0.6], [0.6, -0.6, -0.6],
+                                   [-0.6, 0.6, -0.6], [0, 0, 0.6]])
+    q = rng.uniform(-0.55, 0.55, (3, 5000, 3)).astype(np.float32)
+    cases.append(("deformed_res8", corners, q))
+    return cases
+
+
+def check_point_tet_edge_cases(device=DEVICE):
+    """The kernel against the plain scan on the card, index for index, on
+    ``point_tet_cases``, with the corners as strided views of one tensor
+    (the gather path's layout); the flat tets and the tet across the
+    domain must reach the overflow list, the empty case answer -1 alone."""
+    from deftet_tpu_torch.ops import point_tet
+
+    rows = {}
+    for name, corners, q in point_tet_cases():
+        b, t = corners.shape[:2]
+        flat = torch.tensor(corners, device=device).permute(0, 2, 3, 1)
+        flat = flat.reshape(b, 12 * t)  # k-major, then axis, then tet
+        soa = [[flat[:, (3 * k + c) * t:(3 * k + c + 1) * t]
+                for c in range(3)] for k in range(4)]
+        qt = torch.tensor(q, device=device)
+        got = point_tet.points_in_tets_soa(soa, qt)
+        stats = point_tet.kernel_stats()
+        ref = point_tet.points_in_tets_plain(soa, qt)
+        wrong = int((got != ref).sum())
+        rows[name] = {"wrong": wrong, "found": int((ref >= 0).sum()),
+                      "queries": int(ref.numel()), "stats": stats}
+        if wrong:
+            raise AssertionError(f"point_tet case {name}: {wrong} indices "
+                                 "differ from the plain scan")
+    if (rows["degenerate_and_across"]["stats"]["overflow_tets"] < 2
+            or rows["deformed_res8"]["stats"]["overflow_tets"] < 1):
+        raise AssertionError(f"flat or spanning tets not in overflow: {rows}")
+    if rows["empty"]["found"] or not rows["lattice_points"]["found"]:
+        raise AssertionError(f"point_tet cases: {rows}")
+    if rows["boundary_and_outside"]["stats"]["all_tets_queries"] != 4:
+        raise AssertionError(f"infinite/huge queries: {rows}")
+    say("point_tet_edge_cases", cases=rows)
+    return rows
 
 
 PAPER_STEPS = 3
@@ -3568,7 +3725,8 @@ def kernel_entry(name, res, launches, path):
         "shape": res["shape"], "path": path,
     }
     for extra in ("step_ms", "no_fma_ceiling_ms", "launches_per_run",
-                  "pairs", "hits", "insertion_work", "plain_points"):
+                  "pairs", "hits", "insertion_work", "plain_points",
+                  "stats", "found"):
         if extra in res:
             entry[extra] = res[extra]
     return entry
@@ -3624,13 +3782,14 @@ def main() -> int:
     })
     nearest_eval = timed("kernel_nearest_eval", check_nearest_eval)
     eval_kernels = timed("eval_kernels", check_eval_kernels, ev)
+    timed("point_tet_edge_cases", check_point_tet_edge_cases)
     unc_inputs, unc_launches = timed("uncompacted_step", uncompacted_step)
     unc_kernels = timed("uncompacted_kernels", check_uncompacted_kernels,
                         unc_inputs)
     del unc_inputs
     g_inputs, g_launches, g_engine, g_topology = timed("gather_step",
                                                        gather_step)
-    timed("gather_eval", gather_eval, g_engine, ev_data)
+    g_point_tet = timed("gather_eval", gather_eval, g_engine, ev_data)
     timed("native_topology", native_topology, *g_topology, g_engine.statics)
     timed("lattice_statics", lattice_statics)
     del g_engine, g_topology
@@ -3703,6 +3862,14 @@ def main() -> int:
         kernels.append(kernel_entry("tri_argmin", res,
                                     ev["launches"]["tri_argmin"],
                                     f"eval: Hausdorff {side}"))
+    kernels.append(kernel_entry(
+        "point_tet", ev["point_tet"], ev["launches"]["point_tet"],
+        "eval: occupancy at the SDF points, 4 x 20,000 against 750,000 "
+        "deformed tets"))
+    kernels.append(kernel_entry(
+        "point_tet", g_point_tet, g_point_tet["launches_per_run"],
+        "gather_eval (res-25 grid split 1->8, 750,000 tets): 4 x 20,000 "
+        "SDF points"))
     for name, res in unc_kernels.items():
         kernels.append(kernel_entry(
             name, res, unc_launches[name],

@@ -29,16 +29,17 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
 
-# name -> (source, extra nvcc flags).  The distance and hit-test kernels
-# compile with -fmad=false: every product and sum is rounded separately,
-# in the order the plain PyTorch versions evaluate them, so argmin
-# indices and hit lists agree with the plain versions bit for bit instead
-# of flipping on FMA near-ties.
+# name -> (source, extra nvcc flags).  The distance, hit-test and
+# point-in-tet kernels compile with -fmad=false: every product and sum is
+# rounded separately, in the order the plain PyTorch versions evaluate
+# them, so argmin indices, hit lists and containing tets agree with the
+# plain versions bit for bit instead of flipping on FMA near-ties.
 KERNELS = {
     "stencil": ("stencil.cu", []),
     "nearest": ("nearest.cu", ["-fmad=false"]),
     "tri_argmin": ("tri_argmin.cu", ["-fmad=false"]),
     "raster_hit": ("raster_hit.cu", ["-fmad=false"]),
+    "point_tet": ("point_tet.cu", ["-fmad=false"]),
 }
 
 _P = ctypes.c_void_p
@@ -56,6 +57,11 @@ _SIGNATURES = {  # name -> {C function: argument types}; all return an int
                    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L,
                     _L, _I, _P],
                    "deftet_raster_hit_max_buffered_k": []},
+    "point_tet": {"deftet_point_tet_workspace_bytes": [_I, _L],
+                  "deftet_point_tet_bin":
+                  [_P, _P, _P, _P, _P, _I, _I, _L, _P],
+                  "deftet_point_tet_query":
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P]},
 }
 
 _lock = threading.Lock()
