@@ -17,6 +17,11 @@ port of deftet_tpu/nn/model.py).
   * decode_occ  — features at pre-gathered tet centers -> MLP (or a
                   DISNDecoder) -> logits.
 
+The DISN paths open spans (``utils.timing``): ``disn.encode`` around
+both image encoders (the input and map resizes included), and at every
+head call ``disn.sample`` (the projection and the bilinear samples) and
+``disn.decode`` (the head's MLPs).
+
 Remat segments (``remat.segment``, inside ``remat.segmented``): the
 probe and the first head's initial layer; the probe again with the lap
 head's initial layer (recomputed rather than kept: the (B, N, 835)
@@ -34,6 +39,7 @@ from torch import nn
 
 from .. import remat
 from ..ops.voxelize import trilinear_devoxelize
+from ..utils.timing import span
 from .disn import DISNDecoder, DISNEncoder, disn_local_dim, \
     sample_image_features
 from .gcn import GCNMLPDecoder
@@ -152,9 +158,12 @@ class DeformableTetNetwork(nn.Module):
         """(pos encoding, occ encoding): voxel pyramids of surface points
         (B, N, 3), or with ``use_disn`` (global, maps) of images (B, H, W,
         3)."""
-        def run(encoder):
-            return encoder(inputs) if self.use_disn else encoder(inputs, train)
+        if self.use_disn:
+            with span("disn.encode"):
+                return self._encode(inputs, lambda enc: enc(inputs))
+        return self._encode(inputs, lambda enc: enc(inputs, train))
 
+    def _encode(self, inputs, run):
         enc_pos = run(self.encoder_pos)
         return enc_pos, (run(self.encoder_occ) if self.use_two_encoder
                          else enc_pos)
@@ -176,8 +185,10 @@ class DeformableTetNetwork(nn.Module):
         if cam_bx4x4 is None:
             cam_bx4x4 = torch.eye(4, device=p_bxnx3.device).expand(
                 p_bxnx3.shape[0], 4, 4)
-        return decoder(p_bxnx3, global_feat,
-                       sample_image_features(maps, p_bxnx3, cam_bx4x4))
+        with span("disn.sample"):
+            local = sample_image_features(maps, p_bxnx3, cam_bx4x4)
+        with span("disn.decode"):
+            return decoder(p_bxnx3, global_feat, local)
 
     def decode_pos(self, p_bxnx3, pyramid, pos_mask_bxnx3=None,
                    train: bool = True, adj=None, lattice_res: int = 0,
