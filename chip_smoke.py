@@ -5,7 +5,7 @@
 Phases, each reporting on lines of its own:
 
 1. header  — torch / CUDA versions and the card's name and power limit;
-2. build   — the five CUDA kernels (csrc/*.cu), compiled anew, in parallel;
+2. build   — the six CUDA kernels (csrc/*.cu), compiled anew, in parallel;
 3. parity  — the small configuration in float32: one forward + backward on
    the CPU (plain PyTorch versions of the kernels) and one on the card
    (the kernels), from the same parameters and injected draws;
@@ -35,7 +35,10 @@ Phases, each reporting on lines of its own:
    side (validate, validate_inference, timed inference steps), then the
    point-in-tet kernel at its inputs (4 x 20,000 SDF points against
    750,000 deformed tets) against the plain scan index for index: ms,
-   bound, the plain scan's ms, the kernel's stats record;
+   bound, the plain scan's ms, the kernel's stats record; then the
+   grid-probe kernel at the full-grid occupancy's calls (8 chunks of 4 x
+   100,000 tet centres) against its plain version bit for bit: ms a
+   step, bound, share, the plain version's ms, launches a step;
    uncompacted_step — the main path's configuration at
    max_boundary_faces=0 (the surface terms over every face: K2 over 1.5M
    samples, K3 against every face under the boundary mask), the statics'
@@ -44,7 +47,8 @@ Phases, each reporting on lines of its own:
    grid split 1->8 (750,000 tets, written and read as a .tet file)
    through Engine(config, statics=...): the gather paths, no K1 launch;
    gather_eval — one inference step on that grid at 100,000 points a
-   side, and the point-in-tet kernel checked at its inputs as in eval;
+   side, and the point-in-tet and grid-probe kernels checked at its
+   inputs as in eval (the probe's centres in the split grid's order);
    native_topology — the native (g++) topology builders on that
    grid: build and host seconds beside numpy's, every array held equal,
    and one step on statics from each topology (K2 and K3 once, no K1);
@@ -59,6 +63,8 @@ Phases, each reporting on lines of its own:
    shape (100,000 against 100,000 points), then K1-K3 at the inference
    step's inputs; point_tet_edge_cases — the point-in-tet kernel against
    the plain scan on adversarial grids and queries (point_tet_cases);
+   grid_probe_cases — the grid-probe kernel against its plain version,
+   bit for bit, on grid_probe_cases;
    ddp_parity — two ranks sharing the card (gloo over CUDA tensors) take
    one res-4 f32 step with dropout, and one with grad_accum=2 and remat,
    held to the one-process step on the card (terms rtol 2e-4, gradients
@@ -122,7 +128,8 @@ PEAK_F32 = 67e12
 # runs 4x in the GCN (C = 256) and once for the Laplacian term (C = 3),
 # each with its backward; chamfer and the analytic term launch once each.
 LAUNCHES_PER_STEP = {"stencil": 10, "nearest": 1, "tri_argmin": 1,
-                     "raster_hit": 0, "point_tet": 0}
+                     "raster_hit": 0, "point_tet": 0,
+                     "grid_probe": 0}
 TIMED_STEPS = 5
 
 KERNEL_INFO = {
@@ -139,6 +146,9 @@ KERNEL_INFO = {
     # replaces XLA code: the JAX package's scan of every (point, tet) pair
     "point_tet": ("deftet_tpu_torch/csrc/point_tet.cu",
                   "deftet_tpu/ops/point_tet.py:28"),
+    # replaces XLA code: the pyramid probe's gathers, products and sums
+    "grid_probe": ("deftet_tpu_torch/csrc/grid_probe.cu",
+                   "deftet_tpu/nn/model.py:34"),
 }
 
 
@@ -1229,9 +1239,11 @@ DISN_TINY = dict(use_disn=True, disn_width=0.05, disn_encoding_dim=64,
 # launches per full-width step: both GCN heads (4 + 4 forward, 4 + 4
 # backward) and the Laplacian's forward and backward; DISN runs no GCN
 LAP_LAUNCHES = {"stencil": 18, "nearest": 1, "tri_argmin": 1,
-                "raster_hit": 0, "point_tet": 0}
+                "raster_hit": 0, "point_tet": 0,
+                "grid_probe": 0}
 DISN_LAUNCHES = {"stencil": 2, "nearest": 1, "tri_argmin": 1,
-                 "raster_hit": 0, "point_tet": 0}
+                 "raster_hit": 0, "point_tet": 0,
+                 "grid_probe": 0}
 
 
 def leaf_ratio(got, ref, rtol, atol) -> float:
@@ -1462,7 +1474,8 @@ def check_disn_kernels(inputs, per_variant):
 # launches per full-width step on a general grid: no stencil (the GCN and
 # the Laplacian take the padded gather), chamfer and the analytic term once
 GATHER_LAUNCHES = {"stencil": 0, "nearest": 1, "tri_argmin": 1,
-                   "raster_hit": 0, "point_tet": 0}
+                   "raster_hit": 0, "point_tet": 0,
+                   "grid_probe": 0}
 GATHER_DIR = ROOT / "build" / "smoke_gather"
 
 
@@ -1603,7 +1616,10 @@ def gather_eval(engine, data):
     """One inference step of the gather engine at 100,000 points a side on
     ``data`` (eval_data): a first call, then a timed one with its peak and
     launches, and ``points_in_tets_soa`` alone.  Trains on the batch until
-    there is a predicted surface (at most 40 steps, and says so)."""
+    there is a predicted surface (at most 40 steps, and says so).  Returns
+    the point-in-tet kernel's and the grid-probe kernel's checks at this
+    step's calls (the occupancy rows of 750,000 centres in the split
+    grid's order, not the lattice's)."""
     from deftet_tpu_torch.evals import harness
     from deftet_tpu_torch.ops import _cuda, point_tet
 
@@ -1651,11 +1667,16 @@ def gather_eval(engine, data):
         raise AssertionError(f"gather_eval: non-finite {bad} or no surface")
     if launches["stencil"] or not (launches["nearest"]
                                    and launches["tri_argmin"]
-                                   and launches["point_tet"]):
+                                   and launches["point_tet"]
+                                   and launches["grid_probe"]):
         raise AssertionError(f"gather_eval launched {launches}")
-    return check_point_tet(soa, prepped["sdf_points"],
-                           "kernel_point_tet_gather",
-                           launches["point_tet"])
+    pit = check_point_tet(soa, prepped["sdf_points"],
+                          "kernel_point_tet_gather", launches["point_tet"])
+    del soa
+    gp_calls = grid_probe_calls(engine, prepped)
+    probe = check_grid_probe(gp_calls, "kernel_grid_probe_gather",
+                             launches["grid_probe"])
+    return pit, probe
 
 
 def check_uncompacted_kernels(inputs):
@@ -2245,8 +2266,8 @@ def eval_phase(engine, data):
     bad = [n for n, v in out.items() if not np.isfinite(v)]
     if bad or out["n_boundary"] <= 0:
         raise AssertionError(f"eval: non-finite {bad} or no surface {out}")
-    idle = [n for n in ("stencil", "nearest", "tri_argmin", "point_tet")
-            if launches[n] == 0]
+    idle = [n for n in ("stencil", "nearest", "tri_argmin", "point_tet",
+                        "grid_probe") if launches[n] == 0]
     if idle:
         raise AssertionError(f"eval path never launched {idle}")
 
@@ -2262,6 +2283,10 @@ def eval_phase(engine, data):
         pit = check_point_tet(soa, prepped["sdf_points"],
                               "kernel_point_tet_eval",
                               launches["point_tet"] / (1 + EVAL_RUNS))
+    gp_calls = grid_probe_calls(engine, prepped)
+    probe = check_grid_probe(gp_calls, "kernel_grid_probe_eval",
+                             launches["grid_probe"] / (1 + EVAL_RUNS))
+    del gp_calls
     runs = 1 + EVAL_RUNS
     say("eval", config=f"res={cfg.res} batch={cfg.batch_size} "
         f"{cfg.precision} eval_points={EVAL_POINTS} n_sdf={EVAL_SDF}",
@@ -2276,7 +2301,7 @@ def eval_phase(engine, data):
                 budget=cfg.resolved_max_boundary_faces(),
                 per_run={k: c / runs for k, c in rec.counts.items()},
                 median_infer_s=statistics.median(times), predict_ms=predict_ms,
-                points_in_tets_ms=pit_ms, point_tet=pit)
+                points_in_tets_ms=pit_ms, point_tet=pit, grid_probe=probe)
 
 
 def check_eval_kernels(ev):
@@ -2452,6 +2477,182 @@ def check_point_tet_edge_cases(device=DEVICE):
         raise AssertionError(f"infinite/huge queries: {rows}")
     say("point_tet_edge_cases", cases=rows)
     return rows
+
+
+# the default encoder's pyramid (nn/pvcnn.py DEFAULT_BLOCKS): (C, r)
+DEFAULT_PYRAMID = ((64, 32), (128, 16), (128, 16), (512, 8))
+
+
+def grid_probe_cases(device=DEVICE, seed=11):
+    """The grid-probe kernel's cases: (name, points (B, n, 3), pyramid),
+    float32 tensors on ``device``.  Points on voxel faces of every level
+    (coordinates that are whole numbers), on and past the r - 1 border,
+    and outside [-0.5, 0.5] on every side; the default pyramid, and one
+    of odd, even and single-voxel levels; n not a multiple of a tile and
+    n = 0; B = 1 and 4; strided and expanded points, a level stored
+    channels-first, one expanded over the batch and one a float off
+    16-byte alignment; levels of -0.0 and negative values, so that
+    products of exactly -0.0 start and fill the corner sums."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen)
+
+    def pyramid(b, spec):
+        return [(torch.randn((b, r, r, r, c), generator=gen)).to(device)
+                for c, r in spec]
+
+    # faces of each level: (p + 0.5) r a whole number, p = k / r - 0.5
+    faces = torch.cat([torch.arange(r + 1, dtype=torch.float32) / r - 0.5
+                       for r in (32, 16, 8)])
+    border = torch.tensor([0.5 - 1 / 32, 0.5 - 1 / 16, 0.5 - 1 / 8, 0.5,
+                           0.49, 0.5 - 1e-7, -0.5, -0.5 + 1e-7])
+    outside = torch.tensor([-0.7, 0.9, -3.0, 2.5, -1e6, 1e6, -0.5000001,
+                            0.5000001])
+    special = torch.cat([faces, border, outside])
+    n = 1001
+    pts = rand(4, n, 3) * 1.2 - 0.6
+    pick = torch.randint(0, special.numel(), (4, n, 3), generator=gen)
+    use = rand(4, n, 3) < 0.6
+    pts = torch.where(use, special[pick], pts)
+    cases = [("faces_border_outside", pts.to(device),
+              pyramid(4, DEFAULT_PYRAMID))]
+
+    odd = [(7, 5), (6, 3), (2, 1)]  # one float, two, a single voxel
+    cases.append(("odd_levels_b1", (rand(1, 37, 3) * 1.4 - 0.7).to(device),
+                  pyramid(1, odd)))
+    cases.append(("empty", torch.zeros((4, 0, 3), device=device),
+                  pyramid(4, DEFAULT_PYRAMID[:2])))
+
+    # strided points; a level stored channels-first, one expanded over the
+    # batch, one a float off 16-byte alignment
+    base = (rand(4, 2 * 333, 5) - 0.5).to(device)
+    cf = torch.randn((4, 64, 32, 32, 32), generator=gen).to(device)
+    one = torch.randn((1, 16, 16, 16, 128), generator=gen).to(device)
+    flat = torch.randn(1 + 4 * 8**3 * 512, generator=gen).to(device)
+    cases.append(("strided_views", base[:, ::2, 1:4],
+                  [cf.permute(0, 2, 3, 4, 1), one.expand(4, -1, -1, -1, -1),
+                   flat[1:].view(4, 8, 8, 8, 512)]))
+    cases.append(("expanded_points",
+                  (rand(1, 517, 3) - 0.5).to(device).expand(4, -1, -1),
+                  pyramid(4, DEFAULT_PYRAMID)))
+
+    # -0.0 and negative levels; half the points at voxel centres, whose far
+    # corners weigh exactly 0
+    r = 4
+    neg = -torch.rand((1, r, r, r, 8), generator=gen)
+    zeros = torch.full((1, r, r, r, 8), -0.0)
+    centres = (torch.randint(0, r, (1, 200, 3), generator=gen).float()
+               / r - 0.5)
+    pts = torch.cat([centres, rand(1, 200, 3) - 0.5], dim=1)
+    cases.append(("negative_zero", pts.to(device),
+                  [zeros.to(device), neg.to(device)]))
+    return cases
+
+
+GRID_PROBE_MODES = [(dt, app) for dt in (torch.bfloat16, torch.float32)
+                    for app in (True, False)]
+
+
+def bitwise_differences(got, ref) -> int:
+    """Elements whose bits differ (so +0.0 and -0.0 differ)."""
+    view = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{got.shape} {got.dtype} against {ref.shape} "
+                             f"{ref.dtype}")
+    return int((got.view(view) != ref.view(view)).sum())
+
+
+def check_grid_probe_cases(device=DEVICE):
+    """The kernel against its plain version on the card, bit for bit, on
+    ``grid_probe_cases`` in bfloat16 and float32, with and without xyz;
+    one launch a call with rows."""
+    from deftet_tpu_torch.ops import _cuda, grid_probe as gp
+
+    rows = {}
+    for name, pts, pyr in grid_probe_cases(device):
+        for dt, app in GRID_PROBE_MODES:
+            before = _cuda.launch_counts["grid_probe"]
+            with torch.no_grad():
+                got = gp.grid_probe(pts, pyr, app, dt)
+                ref = gp.grid_probe_plain(pts, pyr, app, dt)
+            launched = _cuda.launch_counts["grid_probe"] - before
+            wrong = bitwise_differences(got, ref)
+            key = "/".join((name, str(dt).split(".")[-1],
+                            "xyz" if app else "no_xyz"))
+            rows[key] = {"wrong": wrong, "elements": ref.numel(),
+                         "launches": launched}
+            if wrong or launched != int(pts.shape[0] * pts.shape[1] > 0):
+                raise AssertionError(f"grid_probe case {key}: {rows[key]}")
+    say("grid_probe_cases", cases=rows)
+    return rows
+
+
+def grid_probe_calls(engine, prepped):
+    """The grid-probe calls of one inference forward of ``engine`` on
+    ``prepped``: [(centres, pyramid, append_points, out_dtype)], one a
+    chunk of ``decode_occ_full_grid``."""
+    from deftet_tpu_torch.evals import harness
+    from deftet_tpu_torch.ops import grid_probe as gp
+
+    calls = []
+    orig = gp._grid_probe_cuda
+
+    def keep(points, pyramid, append_points, out_dtype):
+        calls.append((points.clone(), list(pyramid), append_points,
+                      out_dtype))
+        return orig(points, pyramid, append_points, out_dtype)
+
+    gp._grid_probe_cuda = keep
+    try:
+        with torch.no_grad():
+            harness._predict(engine.model, prepped, engine.statics,
+                             engine.config, engine.lattice_offsets,
+                             engine.tet_lattice)
+    finally:
+        gp._grid_probe_cuda = orig
+    return calls
+
+
+def grid_probe_bound(calls):
+    """(ms, by) of a path's grid-probe calls at the card's peak: each row
+    written once, and each call's pyramid and points read once."""
+    n_bytes = 0
+    for pts, pyr, app, dt in calls:
+        b, n, _ = pts.shape
+        cols = sum(level.shape[-1] for level in pyr) + (3 if app else 0)
+        n_bytes += (b * n * cols * dt.itemsize + 12 * b * n
+                    + sum(4 * level.numel() for level in pyr))
+    return bound_ms(n_bytes, 0.0)
+
+
+def check_grid_probe(calls, label, launches, reps=10):
+    """The kernel at a path's calls (a step's worth) against its plain
+    version on the card, bit for bit: the calls' ms together (CUDA events
+    over ``reps`` runs), their bound, the plain version's ms."""
+    from deftet_tpu_torch.ops import grid_probe as gp
+
+    wrong = 0
+    with torch.no_grad():
+        for c in calls:
+            wrong += bitwise_differences(gp.grid_probe(*c),
+                                         gp.grid_probe_plain(*c))
+        ms = cuda_ms(lambda: [gp.grid_probe(*c) for c in calls], reps)
+        plain_ms = cuda_ms(lambda: [gp.grid_probe_plain(*c) for c in calls],
+                           2)
+    bound, by = grid_probe_bound(calls)
+    shapes = sorted({tuple(c[0].shape) for c in calls}, reverse=True)
+    res = {"shape": f"{len(calls)} calls of {shapes} points against "
+                    f"{[tuple(level.shape) for level in calls[0][1]]}, "
+                    f"{calls[0][3]}, xyz {calls[0][2]}",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by, "share": bound / ms, "library_ms": None,
+           "max_abs_err": wrong, "launches_per_run": launches}
+    say(label, **res)
+    if wrong:
+        raise AssertionError(f"{label}: {wrong} elements differ from the "
+                             "plain version")
+    return res
 
 
 PAPER_STEPS = 3
@@ -3726,7 +3927,7 @@ def kernel_entry(name, res, launches, path):
     }
     for extra in ("step_ms", "no_fma_ceiling_ms", "launches_per_run",
                   "pairs", "hits", "insertion_work", "plain_points",
-                  "stats", "found"):
+                  "stats", "found", "share"):
         if extra in res:
             entry[extra] = res[extra]
     return entry
@@ -3783,13 +3984,15 @@ def main() -> int:
     nearest_eval = timed("kernel_nearest_eval", check_nearest_eval)
     eval_kernels = timed("eval_kernels", check_eval_kernels, ev)
     timed("point_tet_edge_cases", check_point_tet_edge_cases)
+    timed("grid_probe_cases", check_grid_probe_cases)
     unc_inputs, unc_launches = timed("uncompacted_step", uncompacted_step)
     unc_kernels = timed("uncompacted_kernels", check_uncompacted_kernels,
                         unc_inputs)
     del unc_inputs
     g_inputs, g_launches, g_engine, g_topology = timed("gather_step",
                                                        gather_step)
-    g_point_tet = timed("gather_eval", gather_eval, g_engine, ev_data)
+    g_point_tet, g_grid_probe = timed("gather_eval", gather_eval, g_engine,
+                                      ev_data)
     timed("native_topology", native_topology, *g_topology, g_engine.statics)
     timed("lattice_statics", lattice_statics)
     del g_engine, g_topology
@@ -3867,9 +4070,18 @@ def main() -> int:
         "eval: occupancy at the SDF points, 4 x 20,000 against 750,000 "
         "deformed tets"))
     kernels.append(kernel_entry(
+        "grid_probe", ev["grid_probe"], ev["launches"]["grid_probe"],
+        "eval: the full-grid occupancy's rows, 8 chunks of 4 x 100,000 tet "
+        "centres (the last 4 x 50,000) against the 4-level pyramid"))
+    kernels.append(kernel_entry(
         "point_tet", g_point_tet, g_point_tet["launches_per_run"],
         "gather_eval (res-25 grid split 1->8, 750,000 tets): 4 x 20,000 "
         "SDF points"))
+    kernels.append(kernel_entry(
+        "grid_probe", g_grid_probe, g_grid_probe["launches_per_run"],
+        "gather_eval (res-25 grid split 1->8, 750,000 tets): the full-grid "
+        "occupancy's rows, 8 chunks of 4 x 100,000 centres in the split "
+        "grid's order"))
     for name, res in unc_kernels.items():
         kernels.append(kernel_entry(
             name, res, unc_launches[name],

@@ -178,8 +178,10 @@ def _predict(model, batch, statics: GridStatics, config: TrainConfig,
     _, tet_pos, _ = model.decode_pos(init_pos, pyr_pos, pos_mask, False, adj,
                                      lat_res, cam_bx4x4=cam)
     soa = tet_soa_for(tet_pos, statics, config, tet_lattice)
-    logits = decode_occ_full_grid(model, tet_centers_soa(soa), pyr_occ,
-                                  chunk=min(100_000, statics.n_tets), cam=cam)
+    with span("eval.occupancy"):
+        logits = decode_occ_full_grid(model, tet_centers_soa(soa), pyr_occ,
+                                      chunk=min(100_000, statics.n_tets),
+                                      cam=cam)
     return tet_pos, soa, logits
 
 

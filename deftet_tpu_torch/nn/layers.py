@@ -40,8 +40,10 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, gen) -> None:
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
 
 
-def _compute_dtype(dtype, x: torch.Tensor, w: torch.Tensor):
-    return dtype if dtype is not None else torch.promote_types(x.dtype, w.dtype)
+def _compute_dtype(dtype, in_dtype: torch.dtype,
+                   w_dtype: torch.dtype) -> torch.dtype:
+    return dtype if dtype is not None else torch.promote_types(in_dtype,
+                                                               w_dtype)
 
 
 class Dense(nn.Module):
@@ -58,8 +60,12 @@ class Dense(nn.Module):
                      else None)
         _lecun_normal_(self.weight.data, in_features, generator)
 
+    def compute_dtype(self, in_dtype: torch.dtype) -> torch.dtype:
+        """The dtype of the product for inputs of ``in_dtype``."""
+        return _compute_dtype(self.dtype, in_dtype, self.weight.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = _compute_dtype(self.dtype, x, self.weight)
+        dt = self.compute_dtype(x.dtype)
         y = F.linear(x.to(dt), self.weight.to(dt))
         # the bias is added to the product rounded to dt, as flax adds it
         return y if self.bias is None else y + self.bias.to(dt)
@@ -82,7 +88,7 @@ class Conv3d(nn.Module):
         _lecun_normal_(self.weight.data, in_channels * k**3, generator)
 
     def forward(self, x_bxrc: torch.Tensor) -> torch.Tensor:
-        dt = _compute_dtype(self.dtype, x_bxrc, self.weight)
+        dt = _compute_dtype(self.dtype, x_bxrc.dtype, self.weight.dtype)
         y = F.conv3d(x_bxrc.permute(0, 4, 1, 2, 3).to(dt),
                      self.weight.to(dt), padding=self.padding)
         return y.permute(0, 2, 3, 4, 1) + self.bias.to(dt)

@@ -33,6 +33,14 @@ class MLPDecoder(nn.Module):
             i += 1
         self.classifier = Dense(in_features, out_dim, dtype, generator)
 
+    def input_dtype(self, dtype: torch.dtype) -> torch.dtype:
+        """The dtype an input of ``dtype`` is first cast to: the first
+        Dense's compute dtype (a leading dropout takes it as it comes)."""
+        if self.plan and self.plan[0][0] == "dropout":
+            return dtype
+        first = self.Dense_0 if self.plan else self.classifier
+        return first.compute_dtype(dtype)
+
     def forward(self, x: torch.Tensor, train: bool,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         for kind, arg in self.plan:

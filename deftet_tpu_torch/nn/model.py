@@ -15,7 +15,9 @@ port of deftet_tpu/nn/model.py).
                   head is a DISNDecoder on camera-projected image features
                   (the lap head's at the refined positions);
   * decode_occ  — features at pre-gathered tet centers -> MLP (or a
-                  DISNDecoder) -> logits.
+                  DISNDecoder) -> logits.  Where no gradient is needed
+                  the rows come from one ``grid_probe`` call (a kernel
+                  on the card), else from the differentiable ATen probe.
 
 The DISN paths open spans (``utils.timing``): ``disn.encode`` around
 both image encoders (the input and map resizes included), and at every
@@ -38,26 +40,13 @@ import torch
 from torch import nn
 
 from .. import remat
-from ..ops.voxelize import trilinear_devoxelize
+from ..ops.grid_probe import grid_probe, needs_graph, sample_grid_features
 from ..utils.timing import span
 from .disn import DISNDecoder, DISNEncoder, disn_local_dim, \
     sample_image_features
 from .gcn import GCNMLPDecoder
 from .mlp import MLPDecoder
 from .pvcnn import DEFAULT_BLOCKS, PVCNNEncoder
-
-
-def sample_grid_features(point_pos_bxnx3: torch.Tensor,
-                         pyramid: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Probe every pyramid level at clamp((p + 0.5) r, 0, r - 1) with
-    border trilinear interpolation; (B, N, sum C)."""
-    p01 = point_pos_bxnx3 + 0.5
-    feats = []
-    for level in pyramid:
-        r = level.shape[1]
-        coords = torch.clamp(p01 * r, 0.0, r - 1.0)
-        feats.append(trilinear_devoxelize(level, coords))
-    return torch.cat(feats, dim=-1)
 
 
 def _lattice_interp_matrix(n_axis: int, grid_res: int, vox_res: int,
@@ -256,6 +245,13 @@ class DeformableTetNetwork(nn.Module):
         if self.use_disn:
             return self._disn_point_delta(self.decoder_occ, centers_bxkx3,
                                           pyramid, cam_bx4x4)[..., 0]
-        feat = sample_grid_features(centers_bxkx3, pyramid)
-        feat = torch.cat([feat, centers_bxkx3], dim=-1)
+        if needs_graph(centers_bxkx3, pyramid):
+            feat = torch.cat([sample_grid_features(centers_bxkx3, pyramid),
+                              centers_bxkx3], dim=-1)
+        else:
+            # no graph: the rows in one pass, already in the dtype the
+            # decoder's first layer computes in
+            feat = grid_probe(centers_bxkx3, pyramid, True,
+                              self.decoder_occ.input_dtype(
+                                  centers_bxkx3.dtype))
         return self.decoder_occ(feat, train, generator)[..., 0]

@@ -29,17 +29,19 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
 
-# name -> (source, extra nvcc flags).  The distance, hit-test and
-# point-in-tet kernels compile with -fmad=false: every product and sum is
-# rounded separately, in the order the plain PyTorch versions evaluate
-# them, so argmin indices, hit lists and containing tets agree with the
-# plain versions bit for bit instead of flipping on FMA near-ties.
+# name -> (source, extra nvcc flags).  The distance, hit-test,
+# point-in-tet and grid-probe kernels compile with -fmad=false: every
+# product and sum is rounded separately, in the order the plain PyTorch
+# versions evaluate them, so argmin indices, hit lists, containing tets
+# and probe rows agree with the plain versions bit for bit instead of
+# flipping on FMA near-ties.
 KERNELS = {
     "stencil": ("stencil.cu", []),
     "nearest": ("nearest.cu", ["-fmad=false"]),
     "tri_argmin": ("tri_argmin.cu", ["-fmad=false"]),
     "raster_hit": ("raster_hit.cu", ["-fmad=false"]),
     "point_tet": ("point_tet.cu", ["-fmad=false"]),
+    "grid_probe": ("grid_probe.cu", ["-fmad=false"]),
 }
 
 _P = ctypes.c_void_p
@@ -62,6 +64,9 @@ _SIGNATURES = {  # name -> {C function: argument types}; all return an int
                   [_P, _P, _P, _P, _P, _I, _I, _L, _P],
                   "deftet_point_tet_query":
                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P]},
+    "grid_probe": {"deftet_grid_probe":
+                   [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                    _P, _P]},
 }
 
 _lock = threading.Lock()

@@ -144,10 +144,13 @@ def test_fit_epoch_seconds_are_its_spans(fitted):
             assert by_id[s["parent"]]["name"] == "engine.train_epoch"
         if s["name"] == "eval.points_in_tets":
             assert by_id[s["parent"]]["name"] == "eval.step"
+        if s["name"] == "eval.occupancy":
+            assert by_id[s["parent"]]["name"] == "eval.forward"
     names = {s["name"] for s in spans}
     assert {"engine.init", "engine.statics", "engine.model",
             "engine.prep_batch", "engine.read", "engine.log",
-            "eval.forward", "eval.surface", "eval.metrics"} <= names
+            "eval.forward", "eval.occupancy", "eval.surface",
+            "eval.metrics"} <= names
 
 
 def test_restore_continues_bit_identically(fitted):
