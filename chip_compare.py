@@ -189,16 +189,13 @@ def stencil_shapes(smoke):
     import torch
 
     from deftet_tpu_torch.ops import stencil
-    from deftet_tpu_torch.tetgrid import build_tet_grid
-    from deftet_tpu_torch.train.statics import (build_grid_statics,
-                                                lattice_offsets)
+    from deftet_tpu_torch.train.statics import build_grid_statics
 
-    grid = build_tet_grid(50)
-    degree = build_grid_statics(50, grid=grid).vert_degree
-    inv_deg = (1.0 / torch.clamp(degree, min=1).float()).cuda()
+    st = build_grid_statics(50)
+    inv_deg = (1.0 / torch.clamp(st.vert_degree, min=1).float()).cuda()
     gen = torch.Generator(device="cpu").manual_seed(2)
     g = torch.randn((4, 51**3, 3), generator=gen).cuda()
-    shapes = {"lap_backward": (g, 51, lattice_offsets(grid), None, inv_deg)}
+    shapes = {"lap_backward": (g, 51, st.lattice.offsets, None, inv_deg)}
 
     def checksums(args):
         out = stencil.stencil_sum(*args)

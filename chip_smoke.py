@@ -1216,8 +1216,7 @@ def parity_eval(devices=("cpu", DEVICE)):
         d = on_device(draws, device)
         if device == devices[0]:
             _, _, logits = harness._predict(
-                engine.model, prepped, engine.statics, cfg,
-                engine.lattice_offsets, engine.tet_lattice, noise=d["noise"])
+                engine.model, prepped, engine.statics, cfg, noise=d["noise"])
             probs = np.sort(torch.sigmoid(logits).cpu().numpy().reshape(-1))
             half = len(probs) // 2
             i = half + int(np.argmax(np.diff(probs[half:])))
@@ -1438,8 +1437,7 @@ def disn_step(eval_batch_np):
     infer_s = time.perf_counter() - t
     with torch.no_grad():
         predict_ms = host_ms(lambda: harness._predict(
-            engine.model, prepped, engine.statics, cfg,
-            engine.lattice_offsets, engine.tet_lattice), 2)
+            engine.model, prepped, engine.statics, cfg), 2)
     say("disn_infer", first_s=first_s, seconds=infer_s,
         predict_forward_and_occupancy_ms=predict_ms, metrics=out,
         launches=infer_launches,
@@ -1574,7 +1572,7 @@ def gather_step():
         vertex_tet_width=int(st.vert_tet_inc_idx.shape[1]),
         gather_median_step_s=STEP_MEDIANS["gather_step"],
         lattice_median_step_s=STEP_MEDIANS.get("main"))
-    if engine.lattice_offsets is not None or st.n_tets != 750_000:
+    if st.lattice is not None or st.n_tets != 750_000:
         raise AssertionError("gather_step did not run a non-lattice grid")
     gather_determinism(st)
     return inputs, launches, engine, (grid, topology, topology_s)
@@ -1652,7 +1650,7 @@ def gather_eval(engine, data):
     peak = torch.cuda.max_memory_allocated()
     with torch.no_grad():
         _, soa, _ = harness._predict(engine.model, prepped, engine.statics,
-                                     cfg, None, None)
+                                     cfg)
         torch.cuda.synchronize()
         t = time.perf_counter()
         point_tet.points_in_tets_soa(soa, prepped["sdf_points"])
@@ -2158,7 +2156,7 @@ def parity_gather(devices=("cpu", DEVICE)):
                 d = on_device(draws, device)
                 _, _, logits = harness._predict(
                     engine.model, engine._prep_batch(batch), engine.statics,
-                    cfg, None, None, noise=d["noise"])
+                    cfg, noise=d["noise"])
                 probs = np.sort(torch.sigmoid(logits).cpu().numpy()
                                 .reshape(-1))
                 half = len(probs) // 2
@@ -2273,11 +2271,9 @@ def eval_phase(engine, data):
 
     with torch.no_grad():
         _, soa, _ = harness._predict(engine.model, prepped, engine.statics,
-                                     cfg, engine.lattice_offsets,
-                                     engine.tet_lattice)
+                                     cfg)
         predict_ms = host_ms(lambda: harness._predict(
-            engine.model, prepped, engine.statics, cfg,
-            engine.lattice_offsets, engine.tet_lattice), 3)
+            engine.model, prepped, engine.statics, cfg), 3)
         pit_ms = host_ms(lambda: point_tet.points_in_tets_soa(
             soa, prepped["sdf_points"]), 3)
         pit = check_point_tet(soa, prepped["sdf_points"],
@@ -2607,8 +2603,7 @@ def grid_probe_calls(engine, prepped):
     try:
         with torch.no_grad():
             harness._predict(engine.model, prepped, engine.statics,
-                             engine.config, engine.lattice_offsets,
-                             engine.tet_lattice)
+                             engine.config)
     finally:
         gp._grid_probe_cuda = orig
     return calls

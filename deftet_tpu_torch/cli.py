@@ -261,7 +261,7 @@ def eval_main(argv=None) -> int:
         if args.save_vis and not vis_done:
             save_predicted_surface_objs(
                 engine.model, prepped, engine.statics, config,
-                experiment.file_path("vis_surface"), **engine._lattice())
+                experiment.file_path("vis_surface"))
             vis_done = True
     metrics = {k: v / max(n, 1) for k, v in sums.items()}
     per_category = {cat: {k: v / b["n"] for k, v in b.items() if k != "n"}

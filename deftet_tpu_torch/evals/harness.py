@@ -30,26 +30,25 @@ before ``val_iou_max`` takes its maximum.
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Dict
+from typing import Dict
 
 import torch
 
 from .. import parallel
 from ..config import TrainConfig
-from ..losses.geometry import (
-    gather_tet_soa,
-    gather_tet_soa_lattice,
-    tet_centers_soa,
-)
+from ..losses.geometry import tet_centers_soa
 from ..losses.surface import (
     boundary_faces_from_occupancy,
     select_boundary_subset,
 )
-from ..nn.gcn import LatticeAdjacency, VertexAdjacency
 from ..ops.point_tet import paste_occupancy, points_in_tets_soa
+from ..train.statics import (
+    GridStatics,
+    adjacency_for,
+    face_lattice_for,
+    tet_soa_for,
+)
 from ..utils.timing import span
-if TYPE_CHECKING:  # train.step imports this module
-    from ..train.statics import GridStatics
 from .metrics import (
     chamfer_distance,
     chamfer_distance_l1,
@@ -118,42 +117,8 @@ def decode_occ_full_grid(model, centers_soa, pyramid, chunk: int = 100_000,
     return torch.cat(out, dim=1)
 
 
-def adjacency_for(statics: GridStatics, config: TrainConfig,
-                  lattice_offsets):
-    """(adjacency, lattice_res): the stencil and the separable probe when
-    the regular grid's offsets are given, else the padded gather and the
-    per-vertex probe.  The one dispatch train and eval share."""
-    if lattice_offsets is not None:
-        return (LatticeAdjacency.from_degree(lattice_offsets,
-                                             statics.vert_degree),
-                config.res)
-    return VertexAdjacency(idx=statics.vert_adj_idx,
-                           mask=statics.vert_adj_mask,
-                           degree=statics.vert_degree), 0
-
-
-def tet_soa_for(tet_pos, statics: GridStatics, config: TrainConfig,
-                tet_lattice):
-    """Every tet's corners in SoA form: lattice slices when the type-major
-    offsets are given, else incidence gathers."""
-    if tet_lattice is not None:
-        return gather_tet_soa_lattice(tet_pos, config.res, tet_lattice)
-    return gather_tet_soa(
-        tet_pos, statics.tet_tx4,
-        vert_tet_inc=(statics.vert_tet_inc_idx, statics.vert_tet_inc_mask))
-
-
-def face_lattice_for(statics: GridStatics, face_lattice):
-    """``face_lattice`` when the statics' faces are in its class-major
-    layout, else None (the gather paths)."""
-    if face_lattice is not None and \
-            statics.face_fx3.shape[0] == 12 * face_lattice.res**3:
-        return face_lattice
-    return None
-
-
 def _predict(model, batch, statics: GridStatics, config: TrainConfig,
-             lattice_offsets, tet_lattice, noise=None):
+             noise=None):
     """(tet_pos, soa, logits) of the eval forward over the whole grid."""
     surface = batch["surface_points"]
     bsz = surface.shape[0]
@@ -174,10 +139,10 @@ def _predict(model, batch, statics: GridStatics, config: TrainConfig,
     init_pos = statics.init_pos_nx3[None].expand(bsz, -1, -1)
     pos_mask = statics.pos_mask_nx3[None].expand(bsz, -1, -1)
     pyr_pos, pyr_occ = model.encode(inp, False)
-    adj, lat_res = adjacency_for(statics, config, lattice_offsets)
+    adj, lat_res = adjacency_for(statics)
     _, tet_pos, _ = model.decode_pos(init_pos, pyr_pos, pos_mask, False, adj,
                                      lat_res, cam_bx4x4=cam)
-    soa = tet_soa_for(tet_pos, statics, config, tet_lattice)
+    soa = tet_soa_for(tet_pos, statics)
     with span("eval.occupancy"):
         logits = decode_occ_full_grid(model, tet_centers_soa(soa), pyr_occ,
                                       chunk=min(100_000, statics.n_tets),
@@ -185,11 +150,10 @@ def _predict(model, batch, statics: GridStatics, config: TrainConfig,
     return tet_pos, soa, logits
 
 
-def _surface(pred_occ, statics: GridStatics, config: TrainConfig,
-             face_lattice):
+def _surface(pred_occ, statics: GridStatics, config: TrainConfig):
     faces_b, mask_b = boundary_faces_from_occupancy(
         pred_occ, statics.face_fx3, statics.face_tet_fx2,
-        face_lattice_for(statics, face_lattice))
+        face_lattice_for(statics))
     # budget 0: every boundary face
     budget = config.resolved_max_boundary_faces() or faces_b.shape[1]
     work_faces, work_mask = select_boundary_subset(faces_b, mask_b, budget)
@@ -198,30 +162,25 @@ def _surface(pred_occ, statics: GridStatics, config: TrainConfig,
 
 @torch.no_grad()
 def extract_predicted_surface(model, batch, statics: GridStatics,
-                              config: TrainConfig, lattice_offsets=None,
-                              tet_lattice=None, face_lattice=None):
+                              config: TrainConfig):
     """(verts (B, N, 3), faces (B, K, 3), mask (B, K)) numpy arrays of the
     predicted surface: the deformed vertices and the boundary faces of the
     thresholded occupancy (for the OBJ dumps)."""
-    tet_pos, _, logits = _predict(model, batch, statics, config,
-                                  lattice_offsets, tet_lattice)
+    tet_pos, _, logits = _predict(model, batch, statics, config)
     pred_occ = (torch.sigmoid(logits) > config.occ_threshold).float()
-    work_faces, work_mask, _, _ = _surface(pred_occ, statics, config,
-                                           face_lattice)
+    work_faces, work_mask, _, _ = _surface(pred_occ, statics, config)
     return (tet_pos.float().cpu().numpy(), work_faces.cpu().numpy(),
             work_mask.cpu().numpy())
 
 
 def save_predicted_surface_objs(model, batch, statics, config,
-                                out_prefix: str, lattice_offsets=None,
-                                tet_lattice=None, face_lattice=None):
+                                out_prefix: str):
     """One OBJ per batch element, ``{out_prefix}_{i}.obj``; returns the
     paths."""
     from ..utils import save_obj
 
-    verts, faces, mask = extract_predicted_surface(
-        model, batch, statics, config, lattice_offsets=lattice_offsets,
-        tet_lattice=tet_lattice, face_lattice=face_lattice)
+    verts, faces, mask = extract_predicted_surface(model, batch, statics,
+                                                   config)
     paths = []
     for i in range(verts.shape[0]):
         path = f"{out_prefix}_{i}.obj"
@@ -230,15 +189,15 @@ def save_predicted_surface_objs(model, batch, statics, config,
     return paths
 
 
-def make_inference_step(model, config: TrainConfig, lattice_offsets=None,
-                        tet_lattice=None, face_lattice=None):
+def make_inference_step(model, config: TrainConfig):
     """``infer(batch, statics, generator=None, draws=None)`` -> the
     inference metrics as (0-d) tensors: predicted occupancy, surface and
     all metrics, without gradients.
 
     ``draws`` may hold ``noise`` (the input noise), ``pred`` and ``gt``
-    (each (face_id, u_raw, v) for ``sample_mesh_points``).  Without the
-    lattice arguments the step runs the gather paths (any tet grid)."""
+    (each (face_id, u_raw, v) for ``sample_mesh_points``).  The step
+    takes the paths that ``statics.lattice`` names: the lattice's, or the
+    gather paths (any tet grid)."""
 
     @torch.no_grad()
     def infer(batch, statics: GridStatics,
@@ -250,13 +209,12 @@ def make_inference_step(model, config: TrainConfig, lattice_offsets=None,
     def _infer(batch, statics, generator, draws):
         with span("eval.forward"):
             tet_pos, soa, logits = _predict(model, batch, statics, config,
-                                            lattice_offsets, tet_lattice,
                                             noise=draws.get("noise"))
         with span("eval.surface"):
             prob = torch.sigmoid(logits)
             pred_occ = (prob > config.occ_threshold).float()
             work_faces, work_mask, mask_b, budget = _surface(
-                pred_occ, statics, config, face_lattice)
+                pred_occ, statics, config)
             bsz = tet_pos.shape[0]
             bidx = torch.arange(bsz, device=tet_pos.device)[:, None, None]
             face_pos = tet_pos.float()[bidx, work_faces]  # (B, K, 3, 3)

@@ -41,7 +41,7 @@ def gather_tet_soa(pos_bxnx3: torch.Tensor, tet_tx4: torch.Tensor,
 def gather_tet_soa_lattice(pos_bxnx3: torch.Tensor, res: int, offsets):
     """Corners of the type-major regular grid as contiguous slices of the
     (B, n, n, n) vertex lattice — no gathers.  ``offsets`` is the
-    (6, 4, 3) table of train.statics.lattice_tet_offsets."""
+    (6, 4, 3) table of tetgrid.lattice_tet_offsets."""
     r = int(res)
     n = r + 1
     b = pos_bxnx3.shape[0]

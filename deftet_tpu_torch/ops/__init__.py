@@ -1,6 +1,8 @@
-"""Device ops: geometry, voxelization, lattice reductions, the three
-hand-written kernels (stencil, nearest neighbour, triangle argmin) and the
-PointNet sampling ops (``ops.sampling``, on no path)."""
+"""Device ops: geometry, voxelization, lattice reductions, the wrappers of
+five of the six hand-written kernels (``stencil``, ``nearest``,
+``tri_distance``, ``point_tet``, ``grid_probe``; the sixth, ``raster_hit``,
+is wrapped in ``render/raster.py``) and the PointNet sampling ops
+(``ops.sampling``, on no path)."""
 
 from ._cuda import launch_counts, reset_launch_counts
 from .check_sign import check_sign

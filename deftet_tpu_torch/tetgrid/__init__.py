@@ -9,11 +9,13 @@ from .grid import (
 )
 from .lattice_faces import (
     FaceLattice,
+    LatticeLayout,
     build_lattice_edge_arrays,
     build_lattice_faces,
     build_lattice_topology,
     face_lattice_info,
     face_valid_mask,
+    lattice_layout,
 )
 from .subdivide import delete_tets, subdivide_tets
 from .topology import (
@@ -32,6 +34,7 @@ from .topology import (
 __all__ = [
     "FACE_IDX",
     "FaceLattice",
+    "LatticeLayout",
     "TET_EDGES",
     "TetGrid",
     "Topology",
@@ -50,6 +53,7 @@ __all__ = [
     "face_lattice_info",
     "face_valid_mask",
     "hull_face_owners",
+    "lattice_layout",
     "read_tet_file",
     "save_tet_file",
     "subdivide_tets",

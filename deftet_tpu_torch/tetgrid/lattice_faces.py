@@ -18,12 +18,16 @@ Layout contract:
 
 The class tables are derived from a small probe grid, asserting
 translation invariance.
+
+``lattice_layout`` is the one place that decides whether a grid is the
+regular lattice; the statics carry its answer (``GridStatics.lattice``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 
@@ -31,6 +35,7 @@ from .grid import _CUBE_TETS, build_tet_grid
 from .topology import (
     FACE_ARRAYS,
     FACE_IDX,
+    TET_EDGES,
     Topology,
     build_edge_face_pairs,
     build_faces,
@@ -288,17 +293,85 @@ class FaceLattice:
     edge_incidence: tuple
 
 
+def lattice_offsets(grid) -> tuple | None:
+    """The 14 neighbour offsets of the regular lattice (from a strictly
+    interior vertex of a small grid of the same family), or None below
+    res 2.  The grid's tets are not read: ``lattice_layout`` verifies
+    them."""
+    if grid.resolution < 2:
+        return None
+    probe = build_tet_grid(min(grid.resolution, 4))
+    r = probe.resolution
+    n = r + 1
+    center = (r // 2) * n * n + (r // 2) * n + (r // 2)
+    e = probe.tets[:, TET_EDGES].reshape(-1, 2)
+    mask = (e[:, 0] == center) | (e[:, 1] == center)
+    nbrs = np.unique(e[mask])
+    nbrs = nbrs[nbrs != center]
+    d = _vert_coords(nbrs.astype(np.int64), n) - _vert_coords(
+        np.int64(center), n)
+    offs = sorted(tuple(int(x) for x in row) for row in d)
+    if not all(max(abs(x) for x in o) <= 1 for o in offs):
+        raise AssertionError(f"lattice offsets outside {{-1,0,1}}^3: {offs}")
+    return tuple(offs)
+
+
+def lattice_tet_offsets(grid) -> tuple | None:
+    """(6, 4, 3) nested tuple of {0, 1} offsets such that tet
+    ``type * r^3 + cell`` has corner k at vertex ``cell + offset`` —
+    verified against the tets array — or None for a non-lattice grid."""
+    r = grid.resolution
+    if r < 1:
+        return None
+    n = r + 1
+    tets = np.asarray(grid.tets, np.int64)
+    if tets.shape[0] != 6 * r**3:
+        return None
+    ii, jj, kk = np.meshgrid(
+        np.arange(r), np.arange(r), np.arange(r), indexing="ij"
+    )
+    cell_base = (ii * n * n + jj * n + kk).reshape(-1)
+    offs = []
+    for ty in range(6):
+        delta = tets[ty * r**3:(ty + 1) * r**3] - cell_base[:, None]
+        corner = _vert_coords(delta[0], n)  # (4, 3)
+        if (delta != delta[0]).any() or not np.isin(corner, (0, 1)).all():
+            return None
+        offs.append(tuple(map(tuple, corner.tolist())))
+    return tuple(offs)
+
+
+class LatticeLayout(NamedTuple):
+    """The regular res-``res`` Kuhn lattice's layout: the stencil's 14
+    neighbour ``offsets``, the (6, 4, 3) corner ``tet_offsets`` of the
+    type-major tets and the class-major ``faces``."""
+
+    res: int
+    offsets: tuple
+    tet_offsets: tuple
+    faces: FaceLattice
+
+
+def lattice_layout(grid) -> LatticeLayout | None:
+    """The layout of a regular Kuhn grid of res >= 2 (its tets verified),
+    else None as a whole: the one place that decides whether the stencil,
+    the tet slices and the class-major faces apply."""
+    if grid.resolution < 2:
+        return None
+    tet_offsets = lattice_tet_offsets(grid)
+    if tet_offsets is None:
+        return None
+    r = int(grid.resolution)
+    return LatticeLayout(
+        res=r, offsets=lattice_offsets(grid), tet_offsets=tet_offsets,
+        faces=FaceLattice(res=r, classes=face_class_table(),
+                          edge_incidence=edge_class_table()))
+
+
 def face_lattice_info(grid) -> FaceLattice | None:
     """FaceLattice for a regular Kuhn grid, else None."""
-    from ..train.statics import lattice_tet_offsets
-
-    if grid.resolution < 2 or lattice_tet_offsets(grid) is None:
-        return None
-    return FaceLattice(
-        res=int(grid.resolution),
-        classes=face_class_table(),
-        edge_incidence=edge_class_table(),
-    )
+    layout = lattice_layout(grid)
+    return None if layout is None else layout.faces
 
 
 def build_lattice_topology(grid, face_arrays: bool = True):
@@ -314,7 +387,7 @@ def build_lattice_topology(grid, face_arrays: bool = True):
     come from the native builders wherever g++ is on the path (the pairs
     then listed edge by edge), else from numpy.  Where g++ is present but
     the library fails to build or load, this raises."""
-    if face_lattice_info(grid) is None:
+    if lattice_layout(grid) is None:
         return None
     from ..native import build as native_build
     from ..native import topology as native

@@ -2,12 +2,7 @@
 
 from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from .engine import Engine
-from .statics import (
-    GridStatics,
-    build_grid_statics,
-    lattice_offsets,
-    lattice_tet_offsets,
-)
+from .statics import GridStatics, build_grid_statics
 from .step import (
     ClippedAdam,
     eval_step,
@@ -24,8 +19,6 @@ __all__ = [
     "eval_step",
     "forward_losses",
     "latest_step",
-    "lattice_offsets",
-    "lattice_tet_offsets",
     "make_optimizer",
     "restore_checkpoint",
     "save_checkpoint",

@@ -8,10 +8,10 @@ plain PyTorch version instead, as the tests do.  Asking for CUDA without
 a GPU raises; nothing falls back silently.
 
 Without ``statics`` the engine builds the regular res-``config.res`` Kuhn
-grid and takes its stencil and slice fast paths.  Given ``statics``
-(``build_grid_statics(res, grid=...)`` of any tet grid, e.g. one read by
-``read_tet_file``) every lattice fast path is off and the step runs the
-gather paths, as in the JAX package.
+grid; given ``statics`` (``build_grid_statics(res, grid=...)`` of any tet
+grid, e.g. one read by ``read_tet_file``) it runs on them.  Their lattice
+layout picks the stencil and slice fast paths, or else the gather paths,
+as in the JAX package.
 
 The experiment directory (config, state, ``metrics.jsonl``, ``ckpt/``)
 is created at the first write, so an engine that only takes steps writes
@@ -42,17 +42,10 @@ import torch
 from .. import parallel
 from ..config import Experiment, TrainConfig
 from ..nn import DeformableTetNetwork
-from ..tetgrid import build_tet_grid, face_lattice_info
 from ..utils import timing
 from ..utils.timing import span
 from .checkpoint import restore_checkpoint, save_checkpoint
-from .statics import (
-    GridStatics,
-    build_grid_statics,
-    lattice_offsets,
-    lattice_tet_offsets,
-    statics_to,
-)
+from .statics import GridStatics, build_grid_statics, statics_to
 from .step import eval_step, forward_losses, make_optimizer, train_step
 
 
@@ -107,19 +100,13 @@ class Engine:
             with span("engine.statics"):
                 if statics is not None:
                     self.statics = statics_to(statics, self.device)
-                    self.lattice_offsets = self.tet_lattice = None
-                    self.face_lattice = None
                 else:
-                    grid = build_tet_grid(config.res)
                     # the lattice's face-derived gather tables are read
                     # only by the uncompacted normal term
                     budget = config.resolved_max_boundary_faces()
                     self.statics = build_grid_statics(
-                        config.res, grid=grid, device=self.device,
+                        config.res, device=self.device,
                         face_arrays=not 0 < budget < 12 * config.res**3)
-                    self.lattice_offsets = lattice_offsets(grid)
-                    self.tet_lattice = lattice_tet_offsets(grid)
-                    self.face_lattice = face_lattice_info(grid)
             with span("engine.model"):
                 init_gen = torch.Generator().manual_seed(config.seed)
                 self.model = DeformableTetNetwork(
@@ -219,17 +206,12 @@ class Engine:
                                f"batch of {self.config.batch_size}")
         return parallel.sharded(self.shard)
 
-    def _lattice(self):
-        return dict(lattice_offsets=self.lattice_offsets,
-                    tet_lattice=self.tet_lattice,
-                    face_lattice=self.face_lattice)
-
     def _save_vis(self, batch, name: str) -> None:
         from ..evals.harness import save_predicted_surface_objs
 
         save_predicted_surface_objs(
             self.model, batch, self.statics, self.config,
-            self.experiment.file_path(name), **self._lattice())
+            self.experiment.file_path(name))
 
     # ----------------------------------------------------------------- train
     def train_step(self, batch, draws=None) -> Dict[str, torch.Tensor]:
@@ -239,7 +221,7 @@ class Engine:
         with self._sharded():
             terms = train_step(self.model, self.optimizer, batch,
                                self.statics, self.config, self.generator,
-                               draws=draws, **self._lattice())
+                               draws=draws)
         self.global_step += 1
         return terms
 
@@ -249,7 +231,7 @@ class Engine:
         with self._sharded():
             return forward_losses(self.model, batch, self.statics,
                                   self.config, self.generator, train=train,
-                                  draws=draws, **self._lattice())
+                                  draws=draws)
 
     def train_epoch(self, batches: Iterator[Dict[str, np.ndarray]]) -> Dict:
         """One epoch over numpy batches; returns the mean terms.  The sums
@@ -308,8 +290,7 @@ class Engine:
                 self._save_vis(prepped, f"vis_{self.global_step}")
             with self._sharded():
                 terms = eval_step(self.model, prepped, self.statics,
-                                  self.config, self.generator,
-                                  **self._lattice())
+                                  self.config, self.generator)
             for k, v in terms.items():
                 sums[k] = sums[k] + v if k in sums else v
             n += 1
@@ -327,8 +308,7 @@ class Engine:
         if self._infer_step is None:
             from ..evals.harness import make_inference_step
 
-            self._infer_step = make_inference_step(
-                self.model, self.config, **self._lattice())
+            self._infer_step = make_inference_step(self.model, self.config)
         return self._infer_step
 
     def validate_inference(self, batches: Iterator[Dict[str, np.ndarray]]):

@@ -1,7 +1,10 @@
 """Per-grid static tensors of the train step (torch port of
 deftet_tpu/train/statics.py): the regular lattice's class-major topology,
 or any tet grid's through the generic builders, native (g++) where a
-compiler is on the path and numpy otherwise, as in the JAX package."""
+compiler is on the path and numpy otherwise, as in the JAX package.
+``adjacency_for``, ``tet_soa_for`` and ``face_lattice_for`` read the
+statics' lattice layout: the one dispatch of the step and the evaluation
+between the lattice's fast paths and the gather paths."""
 
 from __future__ import annotations
 
@@ -10,14 +13,20 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..losses.geometry import gather_tet_soa, gather_tet_soa_lattice
+from ..nn.gcn import LatticeAdjacency, VertexAdjacency
 from ..ops.geometry import tet_rest_inverse
 from ..tetgrid import (
+    LatticeLayout,
     TetGrid,
     Topology,
     build_lattice_topology,
     build_tet_grid,
     build_topology,
+    lattice_layout,
 )
+# defined here in the JAX package; the port keeps them beside the layout
+from ..tetgrid.lattice_faces import lattice_offsets, lattice_tet_offsets
 
 
 class GridStatics(NamedTuple):
@@ -41,6 +50,7 @@ class GridStatics(NamedTuple):
     vert_adj_mask: torch.Tensor       # (N, Ma) float32
     vert_degree: torch.Tensor         # (N,) int32
     rest_inverse_tx3x3: torch.Tensor  # (T, 3, 3) float32
+    lattice: LatticeLayout | None = None  # None: the gather paths
 
     @property
     def n_vertices(self) -> int:
@@ -49,63 +59,6 @@ class GridStatics(NamedTuple):
     @property
     def n_tets(self) -> int:
         return self.tet_tx4.shape[0]
-
-
-def lattice_offsets(grid: TetGrid) -> tuple | None:
-    """The 14 neighbour offsets of the regular lattice (from a strictly
-    interior vertex of a small grid of the same family), or None."""
-    if grid.resolution < 2:
-        return None
-    from ..tetgrid.topology import TET_EDGES
-
-    probe = build_tet_grid(min(grid.resolution, 4))
-    r = probe.resolution
-    n = r + 1
-    center = (r // 2) * n * n + (r // 2) * n + (r // 2)
-    e = probe.tets[:, TET_EDGES].reshape(-1, 2)
-    mask = (e[:, 0] == center) | (e[:, 1] == center)
-    nbrs = np.unique(e[mask])
-    nbrs = nbrs[nbrs != center]
-
-    def coords(i):
-        return (i // (n * n), (i // n) % n, i % n)
-
-    c0 = np.array(coords(center))
-    offs = sorted(
-        tuple(int(x) for x in (np.array(coords(int(i))) - c0)) for i in nbrs
-    )
-    if not all(max(abs(x) for x in o) <= 1 for o in offs):
-        raise AssertionError(f"lattice offsets outside {{-1,0,1}}^3: {offs}")
-    return tuple(offs)
-
-
-def lattice_tet_offsets(grid: TetGrid) -> tuple | None:
-    """(6, 4, 3) nested tuple of {0, 1} offsets such that tet
-    ``type * r^3 + cell`` has corner k at vertex ``cell + offset`` —
-    verified against the tets array — or None for a non-lattice grid."""
-    r = grid.resolution
-    if r < 1:
-        return None
-    n = r + 1
-    tets = np.asarray(grid.tets, np.int64)
-    if tets.shape[0] != 6 * r**3:
-        return None
-    ii, jj, kk = np.meshgrid(
-        np.arange(r), np.arange(r), np.arange(r), indexing="ij"
-    )
-    cell_base = (ii * n * n + jj * n + kk).reshape(-1)
-    offs = []
-    for ty in range(6):
-        delta = tets[ty * r**3:(ty + 1) * r**3] - cell_base[:, None]
-        if (delta != delta[0]).any():
-            return None
-        enc = delta[0]
-        di, dj, dk = enc // (n * n), (enc // n) % n, enc % n
-        if not all(((d == 0) | (d == 1)).all() for d in (di, dj, dk)):
-            return None
-        offs.append(tuple((int(di[k]), int(dj[k]), int(dk[k]))
-                          for k in range(4)))
-    return tuple(offs)
 
 
 def build_grid_statics(resolution: int, grid: TetGrid | None = None,
@@ -118,9 +71,11 @@ def build_grid_statics(resolution: int, grid: TetGrid | None = None,
     its edge-face pairs listed edge by edge) and raising where g++ is
     present but the library fails to build or load.  ``face_arrays=False``
     skips the lattice's face-derived gather tables (read only by the
-    uncompacted normal term)."""
+    uncompacted normal term).  ``lattice`` is the grid's layout where the
+    faces are class-major (a given ``topology``'s are checked)."""
     if grid is None:
         grid = build_tet_grid(resolution)
+    layout = lattice_layout(grid)
     if topology is None:
         topology = build_lattice_topology(grid, face_arrays=face_arrays)
     if topology is None:
@@ -130,6 +85,8 @@ def build_grid_statics(resolution: int, grid: TetGrid | None = None,
         topology = (native.build_topology_native
                     if native_build.native_available()
                     else build_topology)(grid.tets, grid.n_vertices)
+    if layout is not None and topology.face_fx3.shape[0] != 12 * layout.res**3:
+        layout = None
     dev = torch.device(device)
 
     def lift(name, dtype=None):
@@ -161,10 +118,40 @@ def build_grid_statics(resolution: int, grid: TetGrid | None = None,
         vert_adj_mask=lift("vert_adj_mask"),
         vert_degree=lift("vert_degree", torch.int32),
         rest_inverse_tx3x3=tet_rest_inverse(init_pos, tet_tx4),
+        lattice=layout,
     )
 
 
 def statics_to(statics: GridStatics, device) -> GridStatics:
-    """``statics`` with every tensor on ``device``."""
-    return GridStatics(*(None if t is None else t.to(device)
+    """``statics`` with every tensor on ``device`` (the layout as it is)."""
+    return GridStatics(*(t.to(device) if isinstance(t, torch.Tensor) else t
                          for t in statics))
+
+
+def adjacency_for(statics: GridStatics):
+    """(adjacency, lattice_res): the stencil and the separable probe on
+    the lattice, else the padded gather and the per-vertex probe."""
+    lat = statics.lattice
+    if lat is not None:
+        return LatticeAdjacency.from_degree(lat.offsets,
+                                            statics.vert_degree), lat.res
+    return VertexAdjacency(idx=statics.vert_adj_idx,
+                           mask=statics.vert_adj_mask,
+                           degree=statics.vert_degree), 0
+
+
+def tet_soa_for(tet_pos, statics: GridStatics):
+    """Every tet's corners in SoA form: lattice slices on the lattice,
+    else incidence gathers."""
+    lat = statics.lattice
+    if lat is not None:
+        return gather_tet_soa_lattice(tet_pos, lat.res, lat.tet_offsets)
+    return gather_tet_soa(
+        tet_pos, statics.tet_tx4,
+        vert_tet_inc=(statics.vert_tet_inc_idx, statics.vert_tet_inc_mask))
+
+
+def face_lattice_for(statics: GridStatics):
+    """The class-major ``FaceLattice`` on the lattice, else None (the
+    gather paths)."""
+    return None if statics.lattice is None else statics.lattice.faces

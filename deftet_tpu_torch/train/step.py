@@ -1,9 +1,9 @@
 """The 3D-supervised train step: ``forward_losses``, the optimizer, one
 update (with gradient accumulation and rematerialization) and the
-validation step (torch port of deftet_tpu/train/step.py).  On the regular
-lattice (the ``lattice_offsets`` / ``tet_lattice`` / ``face_lattice``
-arguments) the step takes the stencil and slice fast paths; without them,
-on any tet grid, the gather paths (evals.harness's shared dispatch).
+validation step (torch port of deftet_tpu/train/step.py).  Where the
+statics carry the regular lattice's layout (``statics.lattice``) the step
+takes the stencil and slice fast paths; on any other tet grid, the gather
+paths (``train.statics``'s dispatch, shared with the evaluation).
 
 Random draws happen where the JAX step draws them — input noise, the
 occupancy center subsample (with replacement), dropout, the chamfer
@@ -41,7 +41,6 @@ import torch
 from .. import parallel, remat
 from ..config import TrainConfig
 from ..evals.metrics import iou_counts
-from ..evals.harness import adjacency_for, face_lattice_for, tet_soa_for
 from ..losses.geometry import (
     amips_energy_soa,
     delta_loss,
@@ -59,7 +58,12 @@ from ..ops.check_sign import check_sign
 from ..ops.lattice import lattice_boundary_info
 from ..ops.voxelize import occupancy_from_grid_soa
 from ..utils.timing import span
-from .statics import GridStatics
+from .statics import (
+    GridStatics,
+    adjacency_for,
+    face_lattice_for,
+    tet_soa_for,
+)
 
 
 class ClippedAdam:
@@ -156,9 +160,6 @@ def forward_losses(
     config: TrainConfig,
     generator: torch.Generator | None = None,
     train: bool = True,
-    lattice_offsets=None,
-    tet_lattice=None,
-    face_lattice=None,
     draws: Dict[str, torch.Tensor] | None = None,
 ):
     """Full forward.  Returns (total, terms); in training the model's
@@ -197,7 +198,7 @@ def forward_losses(
     # (model.decode_pos); the occupancy decoder; the losses.  Under
     # remat.segmented (train_step with remat) the backward recomputes each
     # on its own
-    adj, lat_res = adjacency_for(statics, config, lattice_offsets)
+    adj, lat_res = adjacency_for(statics)
     pyr_pos, pyr_occ = remat.segment(lambda: model.encode(inp, train),
                                      *model.encoders())
     pred_delta, tet_pos, _ = model.decode_pos(
@@ -212,18 +213,18 @@ def forward_losses(
 
     logits = remat.segment(occupancy_logits, model.decoder_occ)
     return remat.segment(lambda: _losses(
-        batch, statics, config, generator, draws, face_lattice, tet_lattice,
-        adj, center_idx, pred_delta, tet_pos, logits))
+        batch, statics, config, generator, draws, adj, center_idx,
+        pred_delta, tet_pos, logits))
 
 
-def _losses(batch, statics, config, generator, draws, face_lattice,
-            tet_lattice, adj, center_idx, pred_delta, tet_pos, logits):
+def _losses(batch, statics, config, generator, draws, adj, center_idx,
+            pred_delta, tet_pos, logits):
     """The loss terms of ``forward_losses`` from the networks' outputs:
     (total, terms)."""
     surface = batch["surface_points"]
     b = surface.shape[0]
     device = surface.device
-    soa = tet_soa_for(tet_pos, statics, config, tet_lattice)
+    soa = tet_soa_for(tet_pos, statics)
     cx, cy, cz = tet_centers_soa(soa)
 
     # GT occupancy at the deformed centers, no gradient: one read of the
@@ -259,7 +260,7 @@ def _losses(batch, statics, config, generator, draws, face_lattice,
     boundary_overflow = None
     if (want(config.lambda_surf) or want(config.lambda_surf_chamfer)
             or want(config.lambda_normal)):
-        face_lattice = face_lattice_for(statics, face_lattice)
+        face_lattice = face_lattice_for(statics)
         if face_lattice is not None:
             boundary_mask, boundary_sign = lattice_boundary_info(
                 center_occ, face_lattice)
@@ -372,7 +373,6 @@ def _microbatches(batch, accum: int):
 
 def train_step(model, optimizer: ClippedAdam, batch, statics: GridStatics,
                config: TrainConfig, generator: torch.Generator | None = None,
-               lattice_offsets=None, tet_lattice=None, face_lattice=None,
                draws=None):
     """One optimizer update; returns the detached loss terms + "total".
 
@@ -399,8 +399,6 @@ def train_step(model, optimizer: ClippedAdam, batch, statics: GridStatics,
                       else contextlib.nullcontext()):
                     total, terms = forward_losses(
                         model, mb, statics, config, generator, train=True,
-                        lattice_offsets=lattice_offsets,
-                        tet_lattice=tet_lattice, face_lattice=face_lattice,
                         draws=mb_draws)
             with span("step.backward"):
                 grads = torch.autograd.grad(total, optimizer.params,
@@ -425,13 +423,10 @@ def train_step(model, optimizer: ClippedAdam, batch, statics: GridStatics,
 
 @torch.no_grad()
 def eval_step(model, batch, statics: GridStatics, config: TrainConfig,
-              generator: torch.Generator | None = None, lattice_offsets=None,
-              tet_lattice=None, face_lattice=None, draws=None):
+              generator: torch.Generator | None = None, draws=None):
     """Validation: the loss terms, "total" and ``occ_iou`` without
     gradients, BatchNorm reading its running statistics."""
-    total, terms = forward_losses(
-        model, batch, statics, config, generator, train=False,
-        lattice_offsets=lattice_offsets, tet_lattice=tet_lattice,
-        face_lattice=face_lattice, draws=draws)
+    total, terms = forward_losses(model, batch, statics, config, generator,
+                                  train=False, draws=draws)
     terms["total"] = total
     return _global_terms(terms)

@@ -91,8 +91,7 @@ def batch_report(engine, batch, points):
     config, dev = engine.config, engine.device
     pos, faces, mask = (torch.from_numpy(a).to(dev) for a in
                         extract_predicted_surface(
-                            engine.model, batch, engine.statics, config,
-                            **engine._lattice()))
+                            engine.model, batch, engine.statics, config))
     bsz = pos.shape[0]
     bidx = torch.arange(bsz, device=dev)[:, None, None]
     face_pos = pos[bidx, faces.long()]

@@ -51,9 +51,8 @@ def test_inference_step_matches_reference(monkeypatch):
     pbatch = engine._prep_batch(batch)
     # an occupancy threshold between two neighbouring probabilities near
     # the median, as in test_torch_eval
-    _, _, logits = harness._predict(
-        engine.model, pbatch, engine.statics, cfg, engine.lattice_offsets,
-        engine.tet_lattice)
+    _, _, logits = harness._predict(engine.model, pbatch, engine.statics,
+                                    cfg)
     probs = np.sort(torch.sigmoid(logits).numpy().reshape(-1))
     i = len(probs) // 2 + int(np.argmax(np.diff(probs[len(probs) // 2:])))
     jcfg.occ_threshold = cfg.occ_threshold = float(

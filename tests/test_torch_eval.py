@@ -234,7 +234,7 @@ def test_eval_step_matches_reference(small_model):
     draws = {"bary_u": torch.tensor(np.asarray(jax.random.uniform(ku, shape))),
              "bary_v": torch.tensor(np.asarray(jax.random.uniform(kv, shape)))}
     terms = eval_step(engine.model, engine._prep_batch(batch), engine.statics,
-                      cfg, engine.generator, draws=draws, **engine._lattice())
+                      cfg, engine.generator, draws=draws)
     assert set(terms) == set(ref)
     for name, r in ref.items():
         np.testing.assert_allclose(float(terms[name]), float(r), rtol=1e-4,
@@ -282,8 +282,7 @@ def test_inference_step_matches_reference(small_model, pallas_nn):
     # the median, so that the predicted surface is not empty and no
     # probability sits near the threshold
     _, _, logits = harness._predict(
-        engine.model, pbatch, engine.statics, cfg, engine.lattice_offsets,
-        engine.tet_lattice, noise=torch.tensor(noise))
+        engine.model, pbatch, engine.statics, cfg, noise=torch.tensor(noise))
     probs = np.sort(torch.sigmoid(logits).numpy().reshape(-1))
     i = len(probs) // 2 + int(np.argmax(np.diff(probs[len(probs) // 2:])))
     thresh = float((probs[i] + probs[i + 1]) / 2)

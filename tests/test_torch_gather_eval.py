@@ -39,7 +39,7 @@ def test_inference_step_on_split_grid_matches_reference(split):
         jax.random.PRNGKey(jcfg.seed), (2, jcfg.n_point, 3)))
     # a threshold in the widest gap above the median probability
     _, _, logits = harness._predict(engine.model, pbatch, engine.statics,
-                                    cfg, None, None, noise=torch.tensor(noise))
+                                    cfg, noise=torch.tensor(noise))
     probs = np.sort(torch.sigmoid(logits).numpy().reshape(-1))
     i = len(probs) // 2 + int(np.argmax(np.diff(probs[len(probs) // 2:])))
     assert probs[i + 1] - probs[i] > 1e-5
@@ -79,7 +79,7 @@ def test_engine_trains_on_given_statics(split):
     _, pstat = split
     _, cfg = tp.configs(max_boundary_faces=0, grad_accum=2, remat=True)
     engine = Engine(cfg, device="cpu", statics=pstat)
-    assert engine.tet_lattice is None and engine.face_lattice is None
+    assert engine.statics.lattice is None
     batch = engine._prep_batch(tp.batch(cfg))
     before = [p.detach().clone() for p in engine.model.parameters()]
     for _ in range(2):

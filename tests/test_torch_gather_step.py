@@ -89,7 +89,7 @@ def check_forward_losses(case, split=None):
              for n, key in (("bary_u", ku), ("bary_v", kv))}
 
     engine = Engine(cfg, device="cpu", statics=pstat)
-    assert (engine.lattice_offsets is None) == (pstat is not None)
+    assert (engine.statics.lattice is None) == (pstat is not None)
     load_flax_variables(engine.model, tp.numpy_tree(variables))
     total, terms = engine.forward_losses(engine._prep_batch(batch),
                                          train=True, draws=draws)

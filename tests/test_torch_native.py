@@ -240,6 +240,9 @@ def test_statics_without_gxx_take_numpy(kind, split, monkeypatch):
     numpy_statics = statics.build_grid_statics(4, grid=grid)
     for name, a, b in zip(numpy_statics._fields, numpy_statics,
                           native_statics):
+        if name == "lattice":
+            assert a == b and (a is None) == (kind == "split"), name
+            continue
         assert a.dtype == b.dtype and torch.equal(a, b), name
     if kind == "lattice":
         numpy_topo = build_lattice_topology(grid)

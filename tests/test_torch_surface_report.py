@@ -53,11 +53,8 @@ def _split_the_grid(exp: Path) -> None:
     engine.restore("best")
     (batch,) = batch_iterator(cli._eval_val_set(str(exp), config),
                               config.batch_size)
-    lattice = engine._lattice()
     _, _, logits = _predict(engine.model, engine._prep_batch(batch),
-                            engine.statics, config,
-                            lattice["lattice_offsets"],
-                            lattice["tet_lattice"])
+                            engine.statics, config)
     tree = torch.load(ckpt, weights_only=False)
     head = "decoder_occ.classifier."
     tree["model"][head + "weight"] *= 100.0

@@ -2,8 +2,9 @@
 for array and bit for bit (dtype included): the generic ``build_topology``
 on a Kuhn grid and on a 1->8 split grid, the lattice's class-major
 ``build_lattice_topology`` (with and without its face-derived arrays), a
-``.tet`` round trip, ``Topology.save`` / ``load``, and the general grid's
-``build_grid_statics``."""
+``.tet`` round trip, ``Topology.save`` / ``load``, the general grid's
+``build_grid_statics``, and ``lattice_layout``, the one recognition of the
+regular lattice that the statics carry."""
 
 import dataclasses
 
@@ -19,6 +20,7 @@ from deftet_tpu.native import build as jax_build
 from deftet_tpu.native import topology as jax_native
 from deftet_tpu_torch.native import native_available
 from deftet_tpu_torch.native import topology as port_native
+from deftet_tpu_torch.nn.gcn import LatticeAdjacency
 from deftet_tpu_torch.tetgrid import (
     Topology,
     build_lattice_edge_arrays,
@@ -26,9 +28,10 @@ from deftet_tpu_torch.tetgrid import (
     build_tet_grid,
     build_topology,
     face_lattice_info,
+    lattice_layout,
 )
 from deftet_tpu_torch.tetgrid.topology import FACE_ARRAYS
-from deftet_tpu_torch.train import statics
+from deftet_tpu_torch.train import Engine, statics
 
 
 def assert_same_topology(got, ref, skip=()):
@@ -155,3 +158,57 @@ def test_general_grid_statics_take_the_reference_topology(split,
     if taken:
         assert_same_topology(taken[0], jax_native.build_topology_native(
             jgrid.tets, jgrid.n_vertices))
+
+
+@pytest.mark.parametrize("case", ["split", "lattice", "engine"])
+def test_lattice_layout_is_decided_once(case, split, monkeypatch):
+    """A split grid has no layout, even read as res 4 (its 384 tets and
+    125 vertices are the res-4 lattice's counts; the probe-derived
+    ``lattice_offsets`` alone would pass it); the res-4 lattice's layout
+    is ``lattice_offsets``, ``lattice_tet_offsets`` and
+    ``face_lattice_info`` (the first two the JAX package's), carried by
+    its statics unless a given topology is not class-major; and an engine
+    given the lattice's statics decodes through the stencil."""
+    lattice = build_tet_grid(4)
+    layout = lattice_layout(lattice)
+    if case == "split":
+        grid = split[1]
+        posing = dataclasses.replace(grid, resolution=4)
+        assert (grid.n_tets, grid.n_vertices) == (lattice.n_tets,
+                                                  lattice.n_vertices) \
+            == (384, 125)
+        assert statics.lattice_offsets(posing) == layout.offsets
+        assert lattice_layout(grid) is None and lattice_layout(posing) is None
+        assert face_lattice_info(posing) is None
+        assert build_lattice_topology(posing) is None
+        assert statics.build_grid_statics(4, grid=posing).lattice is None
+    elif case == "lattice":
+        assert layout == (4, statics.lattice_offsets(lattice),
+                          statics.lattice_tet_offsets(lattice),
+                          face_lattice_info(lattice))
+        assert layout.offsets == jax_statics.lattice_offsets(jax_grid(4))
+        assert layout.tet_offsets == jax_statics.lattice_tet_offsets(
+            jax_grid(4))
+        assert statics.build_grid_statics(4).lattice == layout
+        assert statics.build_grid_statics(
+            4, face_arrays=False).lattice == layout
+        generic = build_topology(lattice.tets, lattice.n_vertices)
+        assert statics.build_grid_statics(
+            4, grid=lattice, topology=generic).lattice is None
+    else:
+        _, cfg = tp.configs()
+        engine = Engine(cfg, device="cpu",
+                        statics=statics.build_grid_statics(4))
+        assert engine.statics.lattice == layout
+        seen = []
+        decode = engine.model.decode_pos
+
+        def spy(*args, **kwargs):
+            seen.append(args[4:6])  # (adjacency, lattice_res)
+            return decode(*args, **kwargs)
+
+        monkeypatch.setattr(engine.model, "decode_pos", spy)
+        engine.forward_losses(engine._prep_batch(tp.batch(cfg)))
+        (adj, lat_res), = seen
+        assert isinstance(adj, LatticeAdjacency) and lat_res == 4
+        assert adj.offsets == layout.offsets
